@@ -1,0 +1,434 @@
+"""Community aggregator — host-side orchestration around the engine
+(counterpart of ``dragg_tpu/aggregator.py``).
+
+Config + weather + price ingestion, seeded home synthesis (with the
+``all_homes-<N>-config.json`` cache), the baseline simulation loop as
+chunks of engine steps, per-home data collection, the utility setpoint,
+and results.json in the reference's directory layout.
+
+Only the baseline case (``simulation.run_rbo_mpc``) of one community runs
+here; the RL cases, fleets, checkpoint/resume, telemetry and the sharded
+mesh raise NotImplementedError naming their config key.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+
+from dragg_tpu_torch.collector import SeriesCollector
+from dragg_tpu_torch.config import configured_solver, load_config
+from dragg_tpu_torch.data import (
+    EnvironmentData,
+    load_environment,
+    load_waterdraw_profiles,
+    parse_dt,
+    waterdraw_path,
+)
+from dragg_tpu_torch.device import resolve_device
+from dragg_tpu_torch.engine import Engine, StepOutputs, make_engine
+from dragg_tpu_torch.homes import (
+    build_fleet_batch,
+    check_home_configs,
+    create_fleet_homes,
+    fleet_config,
+)
+from dragg_tpu_torch.layout import date_folder_name, run_dir_name
+from dragg_tpu_torch.logger import Logger
+from dragg_tpu_torch.scenarios import apply_scenarios
+
+# Per-home series appended each timestep, in the reference's result-hash
+# vocabulary (dragg/aggregator.py:741-745) → StepOutputs field name.
+_BASE_KEYS = {
+    "p_grid_opt": "p_grid",
+    "forecast_p_grid_opt": "forecast_p_grid",
+    "p_load_opt": "p_load",
+    "temp_in_opt": "temp_in",
+    "temp_wh_opt": "temp_wh",
+    "hvac_cool_on_opt": "hvac_cool_on",
+    "hvac_heat_on_opt": "hvac_heat_on",
+    "wh_heat_on_opt": "wh_heat_on",
+    "cost_opt": "cost",
+    "waterdraws": "waterdraws",
+    "correct_solve": "correct_solve",
+}
+_PV_KEYS = {"p_pv_opt": "p_pv", "u_pv_curt_opt": "u_pv_curt"}
+_BATT_KEYS = {"e_batt_opt": "e_batt", "p_batt_ch": "p_batt_ch", "p_batt_disch": "p_batt_disch"}
+
+# Config switches this package does not run yet: (section, key, value
+# that is in the slice).
+_OUT_OF_SLICE = (
+    ("simulation", "run_rl_agg", False),
+    ("simulation", "run_rl_simplified", False),
+    ("telemetry", "enabled", False),
+    ("tpu", "profile_dir", ""),
+)
+
+
+class Aggregator:
+    """Drop-in analog of the JAX package's Aggregator for the baseline run.
+
+    Parameters
+    ----------
+    config : dict | str | None
+        A validated config dict, a path to a TOML file, or None to resolve
+        via ``$DATA_DIR/$CONFIG_FILE``.
+    data_dir : str | None
+        Where to look for nsrdb.csv / waterdraw profiles (``$DATA_DIR``).
+    outputs_dir : str
+        Root of the run-directory tree.
+    device : str | torch.device | None
+        Where the engine runs; None means the CUDA card (and raises when
+        there is none — pass ``device="cpu"`` explicitly).
+    """
+
+    def __init__(self, config=None, data_dir=None, outputs_dir="outputs",
+                 device=None):
+        self.device = resolve_device(device)
+        self.log = Logger("aggregator")
+        resolved = data_dir if data_dir is not None else os.path.expanduser(
+            os.environ.get("DATA_DIR", "data"))
+        explicit = data_dir is not None or "DATA_DIR" in os.environ
+        self.data_dir = resolved if (explicit or os.path.isdir(resolved)) else None
+        self.outputs_dir = outputs_dir
+        os.makedirs(self.outputs_dir, exist_ok=True)
+
+        self.config = config if isinstance(config, dict) else load_config(config)
+        self.config = apply_scenarios(self.config, self.data_dir)
+        for section, key, ok in _OUT_OF_SLICE:
+            if self.config.get(section, {}).get(key, ok) != ok:
+                raise NotImplementedError(f"{section}.{key} is not ported yet")
+        if self.config.get("tpu", {}).get("sharded", "auto") is True:
+            raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
+        if fleet_config(self.config)[0] != 1:
+            raise NotImplementedError("fleet.communities: fleets are not ported yet")
+        self.check_type = self.config["simulation"]["check_type"]
+        self.case = "baseline"
+
+        # Simulation window (dragg/aggregator.py:111-127).
+        self.start_dt = parse_dt(self.config["simulation"]["start_datetime"])
+        self.end_dt = parse_dt(self.config["simulation"]["end_datetime"])
+        self.hours = int((self.end_dt - self.start_dt).total_seconds() / 3600)
+        self.dt = int(self.config["agg"]["subhourly_steps"])
+        self.num_timesteps = int(np.ceil(self.hours * self.dt))
+
+        self.env: EnvironmentData = load_environment(self.config, data_dir=self.data_dir)
+        self.env.check_coverage(self.start_dt, self.end_dt,
+                                int(self.config["home"]["hems"]["prediction_horizon"]))
+        self.start_index = self.env.start_index(self.start_dt)
+
+        self.all_homes: list[dict] | None = None
+        self.engine: Engine | None = None
+        self.timestep = 0
+        self.baseline_agg_load_list: list[float] = []
+        self.all_rps = np.zeros(self.num_timesteps)
+        self.all_sps = np.zeros(self.num_timesteps)
+        self.agg_load = 0.0
+        self.agg_cost = 0.0
+        self.forecast_load = 0.0
+        self.start_time = None
+        self.end_time = None
+        self.extra_summary: dict = {}
+        self.collector: SeriesCollector | None = None
+        self._home_static: dict = {}
+        self.version = self.config["simulation"].get("named_version", "test")
+        self.run_dir = None
+        self._solve_iters: list[int] = []
+
+    # ----------------------------------------------------------- population
+    def _homes_cache_file(self) -> str:
+        n = int(self.config["community"]["total_number_homes"])
+        return os.path.join(self.outputs_dir, f"all_homes-{n}-config.json")
+
+    def get_homes(self) -> None:
+        """Create or reload the home population: reuse
+        ``all_homes-<N>-config.json`` unless overwrite_existing."""
+        homes_file = self._homes_cache_file()
+        if not self.config["community"].get("overwrite_existing", True) and os.path.isfile(homes_file):
+            with open(homes_file) as f:
+                self.all_homes = json.load(f)
+        else:
+            waterdraw = load_waterdraw_profiles(
+                waterdraw_path(self.config, self.data_dir),
+                seed=int(self.config["simulation"]["random_seed"]))
+            self.all_homes = create_fleet_homes(
+                self.config, self.num_timesteps, self.dt, waterdraw)
+        check_home_configs(self.all_homes, self.config)
+        with open(homes_file, "w") as f:
+            json.dump(self.all_homes, f, indent=4)
+
+    def _build_engine(self) -> None:
+        hems = self.config["home"]["hems"]
+        horizon = max(1, int(hems["prediction_horizon"]) * self.dt)
+        batch, _ = build_fleet_batch(self.all_homes, self.config, horizon,
+                                     self.dt, int(hems["sub_subhourly_steps"]))
+        self.engine = make_engine(batch, self.env, self.config,
+                                  self.start_index, device=self.device)
+        if self.engine.bucketed:
+            self.log.logger.info(
+                "type-bucketed engine: " + ", ".join(
+                    f"{b['name']}×{b['n_real']} (m={b['m_eq']}, n={b['n_var']})"
+                    for b in self.engine.bucket_info()))
+
+    # ------------------------------------------------------------- data mgmt
+    def _home_selected(self, home: dict) -> bool:
+        """check_type selection (dragg/aggregator.py:767-770)."""
+        return self.check_type == "all" or home["type"] == self.check_type
+
+    def _home_keys(self, home: dict) -> list[str]:
+        keys = list(_BASE_KEYS)
+        if "pv" in home["type"]:
+            keys += list(_PV_KEYS)
+        if "battery" in home["type"]:
+            keys += list(_BATT_KEYS)
+        return keys
+
+    def reset_collected_data(self) -> None:
+        """Initialize the per-home series store with the leading initial
+        elements (dragg/aggregator.py:589-615)."""
+        self.timestep = 0
+        self.baseline_agg_load_list = []
+        self._solve_iters = []
+        self.extra_summary = {}
+        self._phase_times = {"device_chunks": 0.0, "collect": 0.0}
+        n = len(self.all_homes)
+        self.collector = SeriesCollector(n)
+        self._home_static = {}
+        init = {k: np.zeros((1, n)) for k in ("temp_in_opt", "temp_wh_opt", "e_batt_opt")}
+        for i, home in enumerate(self.all_homes):
+            self._home_static[home["name"]] = {
+                "type": home["type"],
+                "temp_in_sp": home["hvac"]["temp_in_sp"],
+                "temp_wh_sp": home["wh"]["temp_wh_sp"],
+            }
+            init["temp_in_opt"][0, i] = home["hvac"]["temp_in_init"]
+            init["temp_wh_opt"][0, i] = home["wh"]["temp_wh_init"]
+            if "battery" in home["type"]:
+                init["e_batt_opt"][0, i] = home["battery"]["e_batt_init"]
+        for key, arr in init.items():
+            self.collector.add_chunk(key, arr)
+
+    def _collect_chunk(self, outs: StepOutputs) -> None:
+        """Append a chunk of stacked step outputs to the series store (one
+        device→host copy per field), then track the setpoint per step."""
+        host = {f: getattr(outs, f).cpu().numpy() for f in StepOutputs._fields}
+        n_steps = host["p_grid"].shape[0]
+        for out_key, field in (*_BASE_KEYS.items(), *_PV_KEYS.items(),
+                               *_BATT_KEYS.items()):
+            self.collector.add_chunk(out_key, host[field])
+        agg_loads = host["agg_load"]
+        self.baseline_agg_load_list.extend(float(v) for v in agg_loads)
+        self._solve_iters.extend(int(v) for v in host["admm_iters"])
+        n_repair_failed = float(np.sum(host["repair_failed"]))
+        if n_repair_failed > 0:
+            self.log.logger.progress(
+                f"chunk t={self.timestep}..{self.timestep + n_steps}: "
+                f"{int(n_repair_failed)} integer pins left the comfort band "
+                f"(homes kept the relaxed fractional action)")
+        self._log_home_failures(host["correct_solve"])
+        # Ordering parity: the reference increments the timestep before
+        # gen_setpoint, and the setpoint computed after step t is recorded
+        # at step t+1 (dragg/aggregator.py:671-673,726,755).
+        for k in range(n_steps):
+            self.agg_load = float(agg_loads[k])
+            self.forecast_load = float(host["forecast_load"][k])
+            self.agg_cost = float(host["agg_cost"][k])
+            self.timestep += 1
+            self.agg_setpoint = self.gen_setpoint()
+            if self.timestep < self.num_timesteps:
+                self.all_sps[self.timestep] = self.agg_setpoint
+
+    def _log_home_failures(self, correct_solve: np.ndarray) -> None:
+        """One ``home_logs/<name>.log`` per home that fell back, appended
+        lazily (dragg/mpc_calc.py:655-658)."""
+        failed = np.argwhere(np.asarray(correct_solve) == 0.0)
+        if failed.size == 0 or self.run_dir is None:
+            return
+        log_dir = os.path.join(self.run_dir, "home_logs")
+        os.makedirs(log_dir, exist_ok=True)
+        by_home: dict[int, list[int]] = {}
+        for k, i in failed:
+            by_home.setdefault(int(i), []).append(self.timestep + int(k))
+        for i, steps in by_home.items():
+            name = self.all_homes[i]["name"]
+            with open(os.path.join(log_dir, f"{name}.log"), "a") as f:
+                for t in steps:
+                    f.write(
+                        f"WARNING - {name} - timestep {t}: MPC solve failed "
+                        f"tolerance; fallback controller engaged\n")
+
+    # ----------------------------------------------------------- RL setpoint
+    def gen_setpoint(self) -> float:
+        """Utility setpoint: trailing average of community load
+        (dragg/aggregator.py:677-696)."""
+        prev_n = int(self.config["agg"].get("rl", {}).get("prev_timesteps", 12))
+        if self.timestep < 2:
+            self.tracked_loads = [0.5 * self._max_possible_load()] * prev_n
+            self.max_load = -float("inf")
+            self.min_load = float("inf")
+        else:
+            self.tracked_loads[:-1] = self.tracked_loads[1:]
+            self.tracked_loads[-1] = self.agg_load
+        self.avg_load = float(np.average(self.tracked_loads))
+        if self.agg_load > self.max_load or self.timestep % 24 == 0:
+            self.max_load = self.agg_load
+        if self.agg_load < self.min_load or self.timestep % 24 == 0:
+            self.min_load = self.agg_load
+        return self.avg_load
+
+    def _max_possible_load(self) -> float:
+        """Sum of each home's max simultaneous load (dragg/mpc_calc.py:191)."""
+        return float(sum(
+            max(float(h["hvac"]["p_c"]), float(h["hvac"]["p_h"])) + float(h["wh"]["p"])
+            for h in self.all_homes))
+
+    # ------------------------------------------------------------------ run
+    def run_baseline(self) -> None:
+        """The baseline community simulation (dragg/aggregator.py:757-778):
+        chunks of engine steps, with results.json rewritten at every chunk
+        boundary before the end."""
+        horizon_h = self.config["home"]["hems"]["prediction_horizon"]
+        self.log.logger.info(f"Performing baseline run for horizon: {horizon_h}")
+        self.start_time = time.time()
+        state = self.engine.init_state()
+        H = self.engine.params.horizon
+        t = 0
+        while t < self.num_timesteps:
+            n_steps = min(self.checkpoint_interval, self.num_timesteps - t)
+            d0 = time.perf_counter()
+            state, outs = self.engine.run_chunk(
+                state, t, np.zeros((n_steps, H), dtype=np.float32))
+            host_t0 = time.perf_counter()
+            self._phase_times["device_chunks"] += host_t0 - d0
+            self._collect_chunk(outs)
+            self._phase_times["collect"] += time.perf_counter() - host_t0
+            t += n_steps
+            if t < self.num_timesteps:
+                self.write_outputs()
+
+    def check_baseline_vals(self) -> list[str]:
+        """Result-shape check over the selected homes
+        (dragg/aggregator.py:698-709), surfaced in ``Summary.check_errors``."""
+        errors: list[str] = []
+        for i, home in enumerate(self.all_homes):
+            if not self._home_selected(home):
+                continue
+            for k in self._home_keys(home):
+                want = self.num_timesteps + 1 if k in ("temp_in_opt", "temp_wh_opt", "e_batt_opt") else self.num_timesteps
+                got = self.collector.length(k, i)
+                if got != want:
+                    msg = f"Incorrect number of hours. {home['name']}: {k} {got}"
+                    self.log.logger.error(msg)
+                    errors.append(msg)
+        if errors:
+            self.extra_summary["check_errors"] = errors
+        return errors
+
+    # --------------------------------------------------------------- outputs
+    def set_run_dir(self) -> None:
+        """Reference directory layout (dragg/aggregator.py:818-829)."""
+        cfg = self.config
+        self.run_dir = os.path.join(
+            self.outputs_dir,
+            date_folder_name(self.start_dt, self.end_dt),
+            run_dir_name(
+                self.check_type,
+                cfg["community"]["total_number_homes"],
+                cfg["home"]["hems"]["prediction_horizon"],
+                self.dt,
+                int(cfg["home"]["hems"]["sub_subhourly_steps"]),
+                configured_solver(cfg),
+            ),
+            f"version-{self.version}",
+        )
+        os.makedirs(self.run_dir, exist_ok=True)
+
+    def summarize_baseline(self) -> dict:
+        """The Summary block (dragg/aggregator.py:783-816)."""
+        self.end_time = time.time()
+        cfg = self.config
+        sim_slice = slice(self.start_index, self.start_index + self.num_timesteps)
+        summary = {
+            "case": self.case,
+            "start_datetime": self.start_dt.strftime("%Y-%m-%d %H"),
+            "end_datetime": self.end_dt.strftime("%Y-%m-%d %H"),
+            "solve_time": self.end_time - self.start_time,
+            "horizon": cfg["home"]["hems"]["prediction_horizon"],
+            "num_homes": cfg["community"]["total_number_homes"],
+            "p_max_aggregate": max(self.baseline_agg_load_list, default=0.0),
+            "p_grid_aggregate": list(self.baseline_agg_load_list),
+            "OAT": self.env.oat[sim_slice].tolist(),
+            "GHI": self.env.ghi[sim_slice].tolist(),
+            "RP": self.all_rps.tolist(),
+            "p_grid_setpoint": self.all_sps.tolist(),
+            "solver_iterations": list(self._solve_iters),
+            "phase_times": {k: round(v, 3) for k, v in self._phase_times.items()},
+            "TOU": self.env.tou[sim_slice].tolist(),
+        }
+        summary.update(self.extra_summary)
+        return summary
+
+    def _results_plan(self, summary: dict) -> list[tuple]:
+        """The streaming write plan for results.json: raw JSON fragments for
+        structure/static fields, series references for the numeric arrays."""
+        plan: list[tuple] = [("raw", "{")]
+        for i, home in enumerate(self.all_homes):
+            if i:
+                plan.append(("raw", ", "))
+            statics = self._home_static[home["name"]]
+            frag = json.dumps(home["name"]) + ": {"
+            frag += ", ".join(f"{json.dumps(k)}: {json.dumps(v)}" for k, v in statics.items())
+            plan.append(("raw", frag))
+            selected = self._home_selected(home)
+            for key in self._home_keys(home):
+                plan.append(("raw", f", {json.dumps(key)}: "))
+                if selected:
+                    plan.append(("series", key, i))
+                elif key == "temp_in_opt":
+                    plan.append(("raw", json.dumps([home["hvac"]["temp_in_init"]])))
+                elif key == "temp_wh_opt":
+                    plan.append(("raw", json.dumps([home["wh"]["temp_wh_init"]])))
+                elif key == "e_batt_opt":
+                    plan.append(("raw", json.dumps([home["battery"]["e_batt_init"]])))
+                else:
+                    plan.append(("raw", "[]"))
+            plan.append(("raw", "}"))
+        plan.append(("raw", (", " if self.all_homes else "")
+                     + '"Summary": ' + json.dumps(summary)))
+        plan.append(("raw", "}"))
+        return plan
+
+    def write_outputs(self) -> None:
+        """Per-home series + Summary → <run_dir>/<case>/results.json
+        (dragg/aggregator.py:831-844)."""
+        case_dir = os.path.join(self.run_dir, self.case)
+        os.makedirs(case_dir, exist_ok=True)
+        self.collector.write_json(os.path.join(case_dir, "results.json"),
+                                  self._results_plan(self.summarize_baseline()))
+
+    def _checkpoint_steps(self) -> int:
+        """hourly/daily/weekly → timesteps per chunk (dragg/aggregator.py:949-955)."""
+        interval = self.config["simulation"].get("checkpoint_interval", "daily")
+        return {
+            "hourly": self.dt,
+            "daily": self.dt * 24,
+            "weekly": self.dt * 24 * 7,
+        }.get(interval, 500)
+
+    def run(self) -> None:
+        """Entry point: the baseline case (``simulation.run_rbo_mpc``)."""
+        self.log.logger.info("Made it to Aggregator Run")
+        self.checkpoint_interval = self._checkpoint_steps()
+        self.version = self.config["simulation"].get("named_version", "test")
+        self.set_run_dir()
+        if self.config["simulation"].get("run_rbo_mpc", True):
+            self.case = "baseline"
+            self.get_homes()
+            self._build_engine()
+            self.reset_collected_data()
+            self.run_baseline()
+            self.check_baseline_vals()
+            self.write_outputs()

@@ -1,0 +1,659 @@
+"""The community engine: one batched step for the whole community
+(counterpart of ``dragg_tpu/engine.py``).
+
+Each step, for every home-type bucket:
+
+1. slices the environment windows (OAT/GHI/TOU) from device-resident
+   series and builds the water-draw windows and the draw-mixed initial WH
+   temperature (dragg/mpc_calc.py:193-204,281);
+2. gates each home's HVAC season on the noisy OAT forecast, drawn from
+   JAX's own threefry streams (``rng.py``) so the gate matches the JAX
+   package home by home (dragg/mpc_calc.py:206-231,302-309);
+3. assembles the fixed-shape batched QP and solves it with the interior
+   point (``ops/ipm.py``), whose band factor and solves run in the CUDA
+   kernels of ``ops/band_kernels.py``;
+4. pins the first action to integer duty counts in closed form
+   (``integer_repair = "project"``);
+5. routes homes whose solve failed through the fallback controller
+   (dragg/mpc_calc.py:527-596) and advances the state.
+
+PyTorch runs eagerly, so a chunk is a Python loop over steps; the per-home
+arrays (``HomeBatch``, ``CommunityState``, ``StepOutputs``) are
+NamedTuples of tensors in the JAX package's layout, homes first.
+"""
+
+from __future__ import annotations
+
+from functools import reduce
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from dragg_tpu_torch import rng
+from dragg_tpu_torch.device import resolve_device
+from dragg_tpu_torch.homes import TYPE_CODES, slice_batch, type_bucket_ranges
+from dragg_tpu_torch.interop import home_batch_from_numpy
+from dragg_tpu_torch.models.fallback import fallback_control
+from dragg_tpu_torch.ops.ipm import band_plan, ipm_solve_qp
+from dragg_tpu_torch.ops.qp import (
+    QPLayout,
+    TAP_TEMP,
+    TYPE_SPECS,
+    assemble_qp_step,
+    build_qp_static,
+    recover_solution,
+    shift_warm_start,
+    superset_spec_for,
+)
+
+F32 = torch.float32
+WINTER_MAX_OAT = 30.0  # season switch threshold, degC (dragg/mpc_calc.py:303)
+
+# ``tpu.bucketed = "auto"`` buckets by home type when both hold.
+BUCKETED_MIN_HOMES = 32
+BUCKETED_MIN_FRAC = 0.25
+
+
+def resolve_bucket_plan(bucketed: str, type_code) -> list[tuple[str, int, int]] | None:
+    """The contiguous ``(type_name, start, stop)`` buckets to solve at
+    type-specialized shapes, or ``None`` for the one-batch superset path.
+    ``"auto"`` buckets only when the community is big enough and enough
+    homes are non-superset; ``"true"`` forces it (raising if the homes are
+    not grouped by type); ``"false"`` forces the superset batch."""
+    if bucketed == "false":
+        return None
+    ranges = type_bucket_ranges(type_code)
+    if bucketed == "true":
+        if ranges is None:
+            raise ValueError(
+                "tpu.bucketed=true needs homes grouped by type (the "
+                "create_homes materialization order); this batch "
+                "interleaves types")
+        return ranges
+    if ranges is None:
+        return None
+    codes = np.asarray(type_code)
+    n = codes.size
+    non_superset = int(np.sum(codes != TYPE_CODES["pv_battery"]))
+    if n < BUCKETED_MIN_HOMES or non_superset < BUCKETED_MIN_FRAC * n:
+        return None
+    return ranges
+
+
+class _TypeBucket(NamedTuple):
+    """One bucket's shape context: its layout/static/pattern and its slice
+    of every per-home device constant.  The unbucketed engine is the
+    single bucket ``"superset"``."""
+
+    name: str
+    lay: QPLayout
+    comm_start: int          # first home in community order
+    n: int                   # homes in the bucket
+    static: object           # ops.qp.HomeQPStatic
+    batch: object            # HomeBatch of tensors
+    check_mask: torch.Tensor  # (n,) float32
+    noise_idx: torch.Tensor  # (n,) forecast-noise stream id per home
+    home_key: torch.Tensor   # (n, 2) per-home base PRNG key
+
+
+class CommunityState(NamedTuple):
+    """Per-home simulation state carried between timesteps."""
+
+    temp_in: torch.Tensor     # (n,) one-step deterministic indoor temp
+    temp_wh: torch.Tensor     # (n,) WH temp BEFORE next step's draw mixing
+    e_batt: torch.Tensor      # (n,) battery SoC (kWh)
+    e_ev: torch.Tensor        # (n,) EV SOC (kWh; zeros for non-EV homes)
+    counter: torch.Tensor     # (n,) int32 solve_counter
+    plan_cool: torch.Tensor   # (n, H) last feasible raw-duty plans (replay source)
+    plan_heat: torch.Tensor   # (n, H)
+    plan_wh: torch.Tensor     # (n, H)
+    warm_x: torch.Tensor      # (n, nvar) warm-start primal (0 columns unless ipm_warm)
+    warm_y_box: torch.Tensor  # (n, nvar) warm-start box duals
+    warm_rho: torch.Tensor    # (n,) warm-start rho
+    key: torch.Tensor         # (2,) PRNG key words (legacy carry, as in JAX)
+
+
+class StepOutputs(NamedTuple):
+    """Per-home observables for one timestep (the reference's Redis result
+    hash fields, dragg/mpc_calc.py:482-524): kW for powers, duty fractions
+    in [0, 1], ``cost`` on the raw s-scaled grid variable for optimal
+    steps and on the physical one for fallback steps."""
+
+    p_grid: torch.Tensor           # (n,)
+    forecast_p_grid: torch.Tensor  # (n,)
+    p_load: torch.Tensor           # (n,)
+    temp_in: torch.Tensor          # (n,)
+    temp_wh: torch.Tensor          # (n,)
+    hvac_cool_on: torch.Tensor     # (n,) duty fraction
+    hvac_heat_on: torch.Tensor     # (n,)
+    wh_heat_on: torch.Tensor       # (n,)
+    cost: torch.Tensor             # (n,)
+    waterdraws: torch.Tensor       # (n,) liters
+    correct_solve: torch.Tensor    # (n,) 1.0 / 0.0
+    p_pv: torch.Tensor             # (n,) kW
+    u_pv_curt: torch.Tensor        # (n,)
+    e_batt: torch.Tensor           # (n,) kWh
+    p_batt_ch: torch.Tensor        # (n,) kW
+    p_batt_disch: torch.Tensor     # (n,) kW (non-positive)
+    p_ev_ch: torch.Tensor          # (n,) kW EV charging (0 for non-EV homes)
+    e_ev: torch.Tensor             # (n,) kWh EV SOC
+    agg_load: torch.Tensor         # () masked sum of p_grid over homes
+    forecast_load: torch.Tensor    # ()
+    agg_cost: torch.Tensor         # ()
+    admm_iters: torch.Tensor       # () solver iterations this step
+    repair_failed: torch.Tensor    # () homes whose integer pin left the comfort band
+    r_prim_max: torch.Tensor       # () max final primal residual (f32-max sentinel if non-finite)
+    r_dual_max: torch.Tensor       # () max final dual residual
+    bank_fallback_count: torch.Tensor  # () always 0 (no rho bank in the IPM)
+
+
+class StepAux(NamedTuple):
+    """Assemble-phase intermediates consumed by the merge/collect phase."""
+
+    draw0: torch.Tensor        # (n,) liters drawn this step
+    temp_wh_init: torch.Tensor  # (n,) draw-mixed initial WH temp
+    oat1: torch.Tensor         # () OAT at t+1 (fallback simulation forcing)
+    ghi_w: torch.Tensor        # (H+1,)
+    price_total: torch.Tensor  # (n, H)
+    cool_cap: torch.Tensor     # (n,)
+    heat_cap: torch.Tensor     # (n,)
+
+
+class EngineParams(NamedTuple):
+    """Static engine configuration (the IPM path's share of the JAX
+    package's EngineParams)."""
+
+    horizon: int        # H — decision steps (hems horizon * dt)
+    dt: int             # steps per hour
+    s: float            # sub_subhourly_steps (duty-cycle denominator)
+    discount: float
+    start_index: int    # index of sim t=0 in the environment series
+    reg: float          # proximal regularization (tpu.admm_reg)
+    warm_rho: float     # initial warm_rho carry (tpu.admm_rho)
+    ipm_iters: int      # Mehrotra iteration cap
+    ipm_tail_frac: float  # straggler sub-batch fraction (0 disables)
+    ipm_tail_iters: int   # tail-phase iteration cap (0 = ipm_iters)
+    ipm_warm: bool      # seed the IPM from the receding-horizon shift
+    ipm_eps: float      # IPM stopping tolerance
+    ipm_freeze_zmax: float  # divergence-freeze dual threshold (scaled space)
+    band_fused: bool    # factor + predictor solve in one kernel launch
+    integer_first_action: bool  # pin rounded k=0 duty counts ("project")
+    forecast_noise_cap: float  # max forecast-noise std, degC
+    bucketed: str       # "auto" | "true" | "false"
+    seed: int
+
+
+class Engine:
+    """The batched community step for one (community, config), with every
+    per-home constant on ``device``.  Build via :func:`make_engine`."""
+
+    def __init__(self, params: EngineParams, batch, env_oat, env_ghi, env_tou,
+                 check_mask=None, device=None):
+        self.params = params
+        self.device = dev = resolve_device(device)
+        codes = np.asarray(batch.type_code)
+        for t in ("ev", "heat_pump"):
+            if np.any(codes == TYPE_CODES[t]):
+                key = "homes_ev" if t == "ev" else "homes_heat_pump"
+                raise NotImplementedError(
+                    f"community.{key}: {t} homes are not ported yet")
+        self._oat = torch.as_tensor(np.asarray(env_oat), dtype=F32, device=dev)
+        self._ghi = torch.as_tensor(np.asarray(env_ghi), dtype=F32, device=dev)
+        self._tou = torch.as_tensor(np.asarray(env_tou), dtype=F32, device=dev)
+        H = params.horizon
+        self._noise_std = torch.minimum(
+            torch.pow(torch.tensor(1.1, dtype=F32, device=dev),
+                      torch.arange(H, dtype=F32, device=dev)),
+            torch.tensor(params.forecast_noise_cap, dtype=F32, device=dev))
+        self._carry_warm = params.ipm_warm
+        if check_mask is None:
+            check_mask = np.ones(batch.n_homes)
+        cmask = np.asarray(check_mask, dtype=np.float64)
+        ranges = resolve_bucket_plan(params.bucketed, codes)
+        self._bucketed = ranges is not None
+        if ranges is None:
+            ranges = [("superset", 0, batch.n_homes)]
+        key = rng.prng_key(params.seed, dev)
+        self._buckets: list[_TypeBucket] = []
+        for tname, a, b in ranges:
+            spec = (superset_spec_for(codes) if tname == "superset"
+                    else TYPE_SPECS[tname])
+            sub = slice_batch(batch, a, b)
+            self._buckets.append(_TypeBucket(
+                name=tname, lay=QPLayout(H, spec), comm_start=a, n=b - a,
+                static=build_qp_static(sub, H, params.dt, spec, device=dev),
+                batch=home_batch_from_numpy(sub._asdict(), dev),
+                check_mask=torch.as_tensor(cmask[a:b], dtype=F32, device=dev),
+                noise_idx=torch.arange(a, b, device=dev),
+                home_key=key.expand(b - a, 2),
+            ))
+
+    @property
+    def bucketed(self) -> bool:
+        """Whether the community solves as per-type buckets."""
+        return self._bucketed
+
+    def bucket_info(self) -> list[dict]:
+        """One dict per bucket: its type, home range, solved shape and the
+        bandwidth of its Schur band factor."""
+        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n,
+                     m_eq=c.lay.m_eq, n_var=c.lay.n,
+                     nnz=c.static.pattern.nnz,
+                     band_bw=band_plan(c.static.pattern).bw)
+                for c in self._buckets]
+
+    # ---------------------------------------------------------------- state
+    def init_state(self):
+        """t=0 initial conditions (dragg/mpc_calc.py:267-277); one
+        CommunityState per bucket (a tuple) when bucketed."""
+        states = tuple(self._init_state_bucket(c) for c in self._buckets)
+        return states if self._bucketed else states[0]
+
+    def _init_state_bucket(self, ctx: _TypeBucket) -> CommunityState:
+        b, n, H, dev = ctx.batch, ctx.n, self.params.horizon, self.device
+        nw = ctx.lay.n if self._carry_warm else 0
+        zeros = lambda *shape: torch.zeros(shape, dtype=F32, device=dev)  # noqa: E731
+        return CommunityState(
+            temp_in=b.temp_in_init.clone(),
+            temp_wh=b.temp_wh_init.clone(),
+            e_batt=b.e_batt_init_frac * b.batt_capacity,
+            e_ev=b.is_ev * b.ev_init_frac * b.ev_cap,
+            counter=torch.zeros((n,), dtype=torch.int32, device=dev),
+            plan_cool=zeros(n, H),
+            plan_heat=zeros(n, H),
+            plan_wh=zeros(n, H),
+            warm_x=zeros(n, nw),
+            warm_y_box=zeros(n, nw),
+            warm_rho=torch.full((n,), self.params.warm_rho, dtype=F32, device=dev),
+            key=rng.prng_key(self.params.seed, dev),
+        )
+
+    # ----------------------------------------------------------------- step
+    def _prepare(self, ctx: _TypeBucket, state: CommunityState, t: int, rp):
+        """Assemble phase for one bucket: water draws, environment windows,
+        the noisy seasonal gate, and the batched QP.  ``rp`` is the (H,)
+        reward-price vector for this step."""
+        p, lay, b = self.params, ctx.lay, ctx.batch
+        H, dt, s, dev = p.horizon, p.dt, p.s, self.device
+
+        # --- Water draws (dragg/mpc_calc.py:193-204).
+        width = H // dt + 1
+        h0 = min(t // dt, b.draws_hourly.shape[1] - width)  # dynamic_slice clamp
+        raw = torch.repeat_interleave(b.draws_hourly[:, h0:h0 + width], dt, dim=-1) / dt
+        n_raw = raw.shape[-1]
+        idx = torch.arange(H + 1, device=dev)
+        prev_ok = (idx - 1 >= 0).to(F32)
+        next_ok = (idx + 1 < n_raw).to(F32)
+        take = lambda off: raw[:, torch.clamp(idx + off, 0, n_raw - 1)]  # noqa: E731
+        rolled = (take(-1) * prev_ok + take(0) + take(1) * next_ok) / (prev_ok + 1.0 + next_ok)
+        direct = raw[:, torch.clamp(idx, max=n_raw - 1)]
+        draw_size = torch.where(idx < dt, direct, rolled)        # (n, H+1) liters
+        tank = b.tank_size
+        draw_frac = draw_size / tank[:, None]
+        # Draw-mixed initial WH temperature (dragg/mpc_calc.py:271,281).
+        temp_wh_init = (state.temp_wh * (tank - draw_size[:, 0])
+                        + TAP_TEMP * draw_size[:, 0]) / tank
+
+        # --- Environment windows (true values; dragg/mpc_calc.py:211-230).
+        start = p.start_index + t
+        oat_w = self._oat[start:start + H + 1]
+        ghi_w = self._ghi[start:start + H + 1]
+        tou_w = self._tou[start:start + H]
+        price_total = (rp[None, :] + tou_w[None, :]).expand(ctx.n, H)
+
+        # --- Seasonal gate on the noisy forecast: each home's noise is a
+        # function of (community seed, t, home index) alone, so bucketing
+        # cannot perturb it.  The std is capped at forecast_noise_cap (the
+        # reference's unbounded 1.1^k growth flips the gate beyond ~16 h).
+        keys = rng.fold_in(rng.fold_in(ctx.home_key, t), ctx.noise_idx)
+        noise = rng.normal(keys, H) * self._noise_std
+        oat_ev_max = torch.maximum(oat_w[0], torch.amax(oat_w[None, 1:] + noise, dim=1))
+        winter = (oat_ev_max <= WINTER_MAX_OAT).to(F32)
+        heat_cap = winter * s
+        cool_cap = (1.0 - winter) * s
+
+        qp = assemble_qp_step(
+            ctx.static, lay, b,
+            oat_window=oat_w, ghi_window=ghi_w, price_total=price_total,
+            draw_frac=draw_frac,
+            temp_in_init=state.temp_in, temp_wh_init=temp_wh_init,
+            e_batt_init=state.e_batt,
+            cool_cap=cool_cap, heat_cap=heat_cap, wh_cap=s,
+            discount=p.discount,
+        )
+        aux = StepAux(
+            draw0=draw_size[:, 0], temp_wh_init=temp_wh_init, oat1=oat_w[1],
+            ghi_w=ghi_w, price_total=price_total,
+            cool_cap=cool_cap, heat_cap=heat_cap,
+        )
+        return qp, aux
+
+    def _solve(self, ctx: _TypeBucket, state: CommunityState, qp):
+        """Solve phase for one bucket: the interior point on the relaxed
+        QP, then the closed-form integer pin of the first action.  Returns
+        (solution, relaxed solution, repair_failed)."""
+        p = self.params
+        relaxed = ipm_solve_qp(
+            ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
+            reg=p.reg, iters=p.ipm_iters,
+            tail_frac=p.ipm_tail_frac, tail_iters=p.ipm_tail_iters,
+            eps_abs=p.ipm_eps, eps_rel=p.ipm_eps,
+            x0=state.warm_x if p.ipm_warm else None,
+            freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
+        )
+        if not p.integer_first_action:
+            return relaxed, relaxed, torch.zeros((), dtype=F32, device=self.device)
+        sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed)
+        return sol, relaxed, repair_failed
+
+    def _integerize_first_action(self, ctx: _TypeBucket, qp, sol):
+        """Pin the three k=0 duty counts to rounded values (the reference's
+        integer duty cycles, dragg/mpc_calc.py:171-173) in closed form
+        (``integer_repair = "project"``): the k=1 temperatures are affine in
+        the k=0 counts, so each pin is bumped one count in the
+        comfort-safe direction and the k=1 entries move by the same affine
+        delta, with no second solve.  Homes whose pinned k=1 temperatures
+        still leave their bands keep the relaxed action."""
+        lay, st, b = ctx.lay, ctx.static, ctx.batch
+        pc, ph, pwh = b.hvac_p_c, b.hvac_p_h, b.wh_p
+        a_in, awr, a_wh = st.a_in, st.awr, st.a_wh
+        col = lambda a, c: a[:, c]  # noqa: E731
+        lo = lambda c: col(qp.l_box, c)  # noqa: E731
+        hi = lambda c: col(qp.u_box, c)  # noqa: E731
+        clip = lambda v, c: torch.minimum(torch.maximum(v, lo(c)), hi(c))  # noqa: E731
+        x = sol.x
+        cool_r, heat_r, wh_r = col(x, lay.i_cool), col(x, lay.i_heat), col(x, lay.i_wh)
+        pin_c = clip(torch.round(cool_r), lay.i_cool)
+        pin_h = clip(torch.round(heat_r), lay.i_heat)
+        pin_w = clip(torch.round(wh_r), lay.i_wh)
+
+        # k=1 indoor temp under the pin (row r_tind+0: affine delta).
+        def t1_of(pc_pin, ph_pin):
+            return col(x, lay.i_tin + 1) + a_in * (
+                ph * (ph_pin - heat_r) - pc * (pc_pin - cool_r))
+
+        heat_active = hi(lay.i_heat) > 0.5  # season gate (cool_cap/heat_cap)
+        t1 = t1_of(pin_c, pin_h)
+        need_up = t1 < lo(lay.i_tin + 1)    # too cold: +heat / -cool
+        need_dn = t1 > hi(lay.i_tin + 1)    # too hot: -heat / +cool
+        pin_h = torch.where(need_up & heat_active,
+                            torch.minimum(pin_h + 1, hi(lay.i_heat)), pin_h)
+        pin_c = torch.where(need_up & ~heat_active,
+                            torch.maximum(pin_c - 1, lo(lay.i_cool)), pin_c)
+        pin_h = torch.where(need_dn & heat_active,
+                            torch.maximum(pin_h - 1, lo(lay.i_heat)), pin_h)
+        pin_c = torch.where(need_dn & ~heat_active,
+                            torch.minimum(pin_c + 1, hi(lay.i_cool)), pin_c)
+        # k=1 WH temp under the pin, in both the EV row (r_twhd+0) and the
+        # applied row (r_twh1): bump toward whichever bound the worse violates.
+        dt1 = t1_of(pin_c, pin_h) - col(x, lay.i_tin + 1)
+        dwh = lambda w: awr * dt1 + a_wh * pwh * (w - wh_r)  # noqa: E731
+        twh_rows = lambda w: (col(x, lay.i_twh + 1) + dwh(w),  # noqa: E731
+                              col(x, lay.i_twh1) + dwh(w))
+        ev0, ap0 = twh_rows(pin_w)
+        low = torch.minimum(ev0 - lo(lay.i_twh + 1), ap0 - lo(lay.i_twh1))
+        high = torch.maximum(ev0 - hi(lay.i_twh + 1), ap0 - hi(lay.i_twh1))
+        pin_w = torch.where(low < 0,
+                            torch.minimum(pin_w + 1, hi(lay.i_wh)),
+                            torch.where(high > 0,
+                                        torch.maximum(pin_w - 1, lo(lay.i_wh)),
+                                        pin_w))
+
+        dwh1 = dwh(pin_w)
+        t1f = col(x, lay.i_tin + 1) + dt1
+        t1a = col(x, lay.i_tin1) + dt1
+        twh1f, twh1a = twh_rows(pin_w)
+        tol = 1e-3  # fp32 row-arithmetic slack
+        in_band = (
+            (t1f >= lo(lay.i_tin + 1) - tol) & (t1f <= hi(lay.i_tin + 1) + tol)
+            & (t1a >= lo(lay.i_tin1) - tol) & (t1a <= hi(lay.i_tin1) + tol)
+            & (twh1f >= lo(lay.i_twh + 1) - tol) & (twh1f <= hi(lay.i_twh + 1) + tol)
+            & (twh1a >= lo(lay.i_twh1) - tol) & (twh1a <= hi(lay.i_twh1) + tol)
+        )
+        keep = in_band & sol.solved
+        repair_failed = torch.sum(torch.where(sol.solved & ~in_band,
+                                              ctx.check_mask, 0.0))
+        x2 = x.clone()
+        x2[:, [lay.i_cool, lay.i_heat, lay.i_wh]] = torch.stack([pin_c, pin_h, pin_w], dim=1)
+        x2[:, lay.i_tin + 1] += dt1
+        x2[:, lay.i_tin1] += dt1
+        x2[:, lay.i_twh + 1] += dwh1
+        x2[:, lay.i_twh1] += dwh1
+        return sol._replace(x=torch.where(keep[:, None], x2, x)), repair_failed
+
+    def _finish(self, ctx: _TypeBucket, state: CommunityState, t: int, sol,
+                aux: StepAux, warm_sol, repair_failed):
+        """Merge/collect phase for one bucket: recover the physical series,
+        route unsolved homes through the fallback controller, emit
+        observables, advance the state."""
+        p, lay, b = self.params, ctx.lay, ctx.batch
+        H, dt, s, n, dev = p.horizon, p.dt, p.s, ctx.n, self.device
+        price_total = aux.price_total
+        zeros = torch.zeros((n,), dtype=F32, device=dev)
+
+        mpc = recover_solution(sol.x, lay, b, aux.ghi_w, price_total, s)
+        solved = sol.solved
+        counter_inc = torch.where(solved, 0, state.counter + 1)
+        ridx = torch.clamp(counter_inc, 0, H - 1).to(torch.long)[:, None]
+        fb = fallback_control(
+            counter_inc, t, H,
+            torch.gather(state.plan_cool, 1, ridx)[:, 0],
+            torch.gather(state.plan_heat, 1, ridx)[:, 0],
+            torch.gather(state.plan_wh, 1, ridx)[:, 0],
+            state.temp_in, aux.temp_wh_init, aux.oat1,
+            b.hvac_r, b.hvac_c, b.hvac_p_c, b.hvac_p_h,
+            b.wh_r, b.wh_c, b.wh_p,
+            b.temp_in_min, b.temp_in_max, b.temp_wh_min, b.temp_wh_max,
+            aux.cool_cap, aux.heat_cap, torch.full((n,), s, dtype=F32, device=dev),
+            dt,
+        )
+
+        # --- Merge optimal / fallback per home.  The fallback idles the
+        # battery and drops PV from p_grid (dragg/mpc_calc.py:590-593).
+        pick = lambda a, fbv: torch.where(solved, a, fbv)  # noqa: E731
+        cool0 = pick(mpc.cool[:, 0], fb.cool_on)
+        heat0 = pick(mpc.heat[:, 0], fb.heat_on)
+        wh0 = pick(mpc.wh[:, 0], fb.wh_on)
+        p_ch0 = pick(mpc.p_ch[:, 0], zeros)
+        p_d0 = pick(mpc.p_disch[:, 0], zeros)
+        p_pv0 = pick(mpc.p_pv[:, 0], zeros)
+        u_curt0 = pick(mpc.u_curt[:, 0], zeros)
+        p_ev0 = zeros
+        p_load0 = b.hvac_p_c * cool0 + b.hvac_p_h * heat0 + b.wh_p * wh0
+        p_grid0 = p_load0 + (p_ch0 + p_d0 + p_ev0) - p_pv0
+        price0 = price_total[:, 0]
+        # Optimal steps record cost on the raw (s-scaled) grid variable,
+        # fallback steps on the physical one (dragg/mpc_calc.py:500 vs :594).
+        cost0 = torch.where(solved, price0 * s * p_grid0, price0 * p_grid0)
+        temp_in_next = pick(mpc.temp_in1, fb.temp_in)
+        temp_wh_next = pick(mpc.temp_wh1, fb.temp_wh)
+        e_batt_next = pick(mpc.e_batt[:, 1], state.e_batt)
+        # forecast = the plan's step-1 grid power; the fallback's p_load.
+        fore = mpc.p_grid[:, 1] / s if H > 1 else zeros
+        fore = torch.where(solved, fore, p_load0)
+
+        big = torch.tensor(3.4e38, dtype=F32, device=dev)
+
+        def res_max(r):
+            r = torch.where(ctx.check_mask > 0, r, 0.0)
+            return torch.amax(torch.where(torch.isfinite(r), r, big))
+
+        sel2 = solved[:, None]
+        new_state = CommunityState(
+            temp_in=temp_in_next,
+            temp_wh=temp_wh_next,
+            e_batt=e_batt_next,
+            e_ev=state.e_ev,
+            counter=torch.where(solved, 0, fb.counter).to(torch.int32),
+            plan_cool=torch.where(sel2, mpc.cool, state.plan_cool),
+            plan_heat=torch.where(sel2, mpc.heat, state.plan_heat),
+            plan_wh=torch.where(sel2, mpc.wh, state.plan_wh),
+            # Warm starts shift the RELAXED solution, never the pinned one.
+            warm_x=(shift_warm_start(warm_sol.x, lay) if self._carry_warm
+                    else state.warm_x),
+            warm_y_box=(shift_warm_start(warm_sol.y_box, lay) if self._carry_warm
+                        else state.warm_y_box),
+            warm_rho=warm_sol.rho,
+            key=state.key,
+        )
+        mask = ctx.check_mask
+        out = StepOutputs(
+            p_grid=p_grid0,
+            forecast_p_grid=fore,
+            p_load=p_load0,
+            temp_in=temp_in_next,
+            temp_wh=temp_wh_next,
+            hvac_cool_on=cool0 / s,
+            hvac_heat_on=heat0 / s,
+            wh_heat_on=wh0 / s,
+            cost=cost0,
+            waterdraws=aux.draw0,
+            correct_solve=solved.to(F32),
+            p_pv=p_pv0,
+            u_pv_curt=u_curt0,
+            e_batt=e_batt_next,
+            p_batt_ch=p_ch0,
+            p_batt_disch=p_d0,
+            p_ev_ch=p_ev0,
+            e_ev=state.e_ev,
+            agg_load=torch.sum(p_grid0 * mask),
+            forecast_load=torch.sum(fore * mask),
+            agg_cost=torch.sum(cost0 * mask),
+            admm_iters=torch.tensor(sol.iters, dtype=torch.int32, device=dev),
+            repair_failed=repair_failed,
+            r_prim_max=res_max(sol.r_prim),
+            r_dual_max=res_max(sol.r_dual),
+            bank_fallback_count=torch.zeros((), dtype=F32, device=dev),
+        )
+        return new_state, out
+
+    # Merge policy for per-bucket StepOutputs: per-home leaves concatenate
+    # in bucket (= community) order, the masked sums add, the solver
+    # telemetry scalars take the binding (max) bucket.
+    _SUM_OUTPUTS = frozenset(
+        {"agg_load", "forecast_load", "agg_cost", "repair_failed",
+         "bank_fallback_count"})
+    _MAX_OUTPUTS = frozenset({"admm_iters", "r_prim_max", "r_dual_max"})
+
+    def _merge_outputs(self, outs: list) -> StepOutputs:
+        merged = {}
+        for f in StepOutputs._fields:
+            leaves = [getattr(o, f) for o in outs]
+            if f in self._SUM_OUTPUTS:
+                merged[f] = reduce(torch.add, leaves)
+            elif f in self._MAX_OUTPUTS:
+                merged[f] = reduce(torch.maximum, leaves)
+            else:
+                merged[f] = torch.cat(leaves, dim=0)
+        return StepOutputs(**merged)
+
+    def _step_bucket(self, ctx, state_b, t, rp):
+        """assemble → solve → merge/collect for one bucket."""
+        qp, aux = self._prepare(ctx, state_b, t, rp)
+        sol, warm_sol, repair_failed = self._solve(ctx, state_b, qp)
+        return self._finish(ctx, state_b, t, sol, aux, warm_sol, repair_failed)
+
+    def _step(self, state, t: int, rp):
+        """One community timestep; bucketed engines step each bucket at its
+        own shape and merge the outputs back into community order."""
+        states = state if self._bucketed else (state,)
+        parts = [self._step_bucket(c, s, t, rp)
+                 for c, s in zip(self._buckets, states)]
+        new_states, outs = zip(*parts)
+        new_state = tuple(new_states) if self._bucketed else new_states[0]
+        return new_state, self._merge_outputs(list(outs))
+
+    # ------------------------------------------------------------------ api
+    def _rp(self, rp) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rp), dtype=F32, device=self.device)
+
+    def step(self, state, t: int, rp) -> tuple:
+        """Run a single timestep: (new_state, StepOutputs)."""
+        return self._step(state, int(t), self._rp(rp))
+
+    def run_chunk(self, state, t0: int, rps) -> tuple:
+        """Run ``rps.shape[0]`` timesteps from sim step ``t0``; ``rps`` is
+        (n_steps, H) reward prices (zeros for the baseline case).  Returns
+        (final_state, outputs stacked along time)."""
+        rps = self._rp(rps)
+        outs = []
+        for i in range(rps.shape[0]):
+            state, out = self._step(state, int(t0) + i, rps[i])
+            outs.append(out)
+        return state, StepOutputs(*[torch.stack(leaves) for leaves in zip(*outs)])
+
+
+def engine_params(config, start_index: int) -> EngineParams:
+    """The static engine configuration from a validated config dict.
+    Settings outside this package's slice raise NotImplementedError naming
+    their config key."""
+    from dragg_tpu_torch.config import resolve_solver_family
+
+    hems = config["home"]["hems"]
+    dt = int(config["agg"]["subhourly_steps"])
+    tpu_cfg = config.get("tpu", {})
+    horizon = max(1, int(hems["prediction_horizon"]) * dt)
+    if resolve_solver_family(config) != "ipm":
+        raise NotImplementedError(
+            "home.hems.solver: only the interior point ('ipm') is ported")
+    repair_mode = str(tpu_cfg.get("integer_repair", "project"))
+    if repair_mode not in ("project", "resolve"):
+        raise ValueError(
+            f"tpu.integer_repair must be project|resolve, got {repair_mode!r}")
+    if repair_mode == "resolve":
+        raise NotImplementedError(
+            "tpu.integer_repair: only 'project' is ported")
+    bucketed = str(tpu_cfg.get("bucketed", "auto")).lower()
+    if bucketed not in ("auto", "true", "false"):
+        raise ValueError(
+            f"tpu.bucketed must be auto|true|false, got "
+            f"{tpu_cfg.get('bucketed')!r}")
+    kern = str(tpu_cfg.get("band_kernel", "auto"))
+    if kern not in ("auto", "pallas", "xla", "cr"):
+        raise ValueError(
+            f"tpu.band_kernel must be auto|pallas|xla|cr, got {kern!r}")
+    if kern == "cr":
+        raise NotImplementedError(
+            "tpu.band_kernel: cyclic reduction ('cr') is not ported; the "
+            "band factor runs in the CUDA kernels (plain PyTorch on the CPU)")
+    if config.get("telemetry", {}).get("per_home", False):
+        raise NotImplementedError(
+            "telemetry.per_home: the per-home observatory is not ported")
+    return EngineParams(
+        horizon=horizon,
+        dt=dt,
+        s=float(max(1, int(hems["sub_subhourly_steps"]))),
+        discount=float(hems["discount_factor"]),
+        start_index=int(start_index),
+        reg=float(tpu_cfg.get("admm_reg", 1e-3)),
+        warm_rho=float(tpu_cfg.get("admm_rho", 0.1)),
+        # 0 = horizon-aware default (iterations needed grow with H).
+        ipm_iters=int(tpu_cfg.get("ipm_iters", 0)) or 16 + horizon // 2,
+        ipm_tail_frac=float(tpu_cfg.get("ipm_tail_frac", 0.25)),
+        ipm_tail_iters=int(tpu_cfg.get("ipm_tail_iters", 0)),
+        ipm_warm=bool(tpu_cfg.get("ipm_warm_start", False)),
+        ipm_eps=float(tpu_cfg.get("ipm_eps", 2e-4)),
+        ipm_freeze_zmax=float(tpu_cfg.get("ipm_freeze_zmax", 300.0)),
+        band_fused=bool(tpu_cfg.get("band_fused", False)),
+        integer_first_action=bool(tpu_cfg.get("integer_first_action", True)),
+        forecast_noise_cap=float(tpu_cfg.get("forecast_noise_cap", 3.0)),
+        bucketed=bucketed,
+        seed=int(config["simulation"]["random_seed"]),
+    )
+
+
+def check_mask_for(batch, config) -> np.ndarray:
+    """check_type → aggregate-reduction mask (dragg/aggregator.py:767-770)."""
+    check_type = config["simulation"].get("check_type", "all")
+    if check_type == "all":
+        return np.ones(batch.n_homes)
+    return (np.asarray(batch.type_code) == TYPE_CODES[check_type]).astype(np.float64)
+
+
+def make_engine(batch, env, config, start_index: int, device=None) -> Engine:
+    """An :class:`Engine` from a host HomeBatch + EnvironmentData +
+    validated config dict, on ``device`` (None = the CUDA card)."""
+    params = engine_params(config, start_index)
+    return Engine(params, batch, env.oat, env.ghi, env.tou,
+                  check_mask=check_mask_for(batch, config), device=device)

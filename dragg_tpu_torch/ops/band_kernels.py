@@ -1,0 +1,249 @@
+"""The band factor and refined band solves as CUDA kernels (counterpart of
+``dragg_tpu/ops/pallas_band.py``).
+
+Three kernels, written by hand for Hopper in ``csrc/band.cu``:
+
+* ``banded_cholesky_t``      ← ``pallas_band.banded_cholesky_t``
+* ``refined_banded_solve_t`` ← ``pallas_band.refined_banded_solve_t``
+* ``factor_refined_solve_t`` ← ``pallas_band.factor_refined_solve_t``
+
+All take the transposed, homes-last band storage ``(m, bw+1, B)`` with
+``St[i, k, b] = S_perm[i, i-k]`` of home b, and ``(m, B)`` vectors.  Each
+wrapper launches its kernel on a CUDA tensor (or raises), and on a CPU
+tensor runs the kernel's plain PyTorch version — the module-7 band path of
+``ops/banded.py`` in the transposed layout, the same recurrences and
+operation order.  ``LAUNCHES`` counts kernel launches per wrapper.
+
+The library is compiled with nvcc on first use (a plain C interface bound
+with ctypes) into ``_build/`` beside the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from dragg_tpu_torch.ops import banded as bd
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "csrc", "band.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# Kernel launches per wrapper since the last reset: a wrapper adds one
+# exactly where it launches its kernel, never on the CPU path.
+LAUNCHES = {"banded_cholesky_t": 0, "refined_banded_solve_t": 0,
+            "factor_refined_solve_t": 0}
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the band kernels build with the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def build_library() -> str:
+    """Compile ``csrc/band.cu`` (once per source content) and return the
+    shared library's path."""
+    with open(_CSRC, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = os.path.join(_BUILD_DIR, f"libdraggband-{digest}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {_CSRC}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_library())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.band_cholesky_t.argtypes = [p, p, i, i, i, p]
+            lib.band_refined_solve_t.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.band_factor_solve_t.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            for fn in (lib.band_cholesky_t, lib.band_refined_solve_t,
+                       lib.band_factor_solve_t):
+                fn.restype = i
+            _LIB = lib
+        return _LIB
+
+
+def _check(name: str, bw: int, bands=(), vecs=()) -> tuple[int, int]:
+    """Validate the kernel's inputs; returns (m, B)."""
+    if not 1 <= bw <= bd.MAX_BAND:
+        raise ValueError(f"{name}: bandwidth {bw} outside 1..{bd.MAX_BAND}")
+    m, B = bands[0].shape[0], bands[0].shape[2]
+    dev = bands[0].device
+    for a in bands:
+        if a.shape != (m, bw + 1, B):
+            raise ValueError(f"{name}: band array {tuple(a.shape)} != {(m, bw + 1, B)}")
+    for a in vecs:
+        if a.shape != (m, B):
+            raise ValueError(f"{name}: vector {tuple(a.shape)} != {(m, B)}")
+    for a in (*bands, *vecs):
+        if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous float32 on one "
+                             f"device, got {a.dtype} on {a.device}")
+    return m, B
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    """Launch on the device's current stream; raise on a refused launch."""
+    stream = torch.cuda.current_stream(device)
+    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(a: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.data_ptr())
+
+
+# ------------------------------------------------------ plain versions
+def _to_b(a: torch.Tensor) -> torch.Tensor:
+    """(m, bw+1, B) → (B, m, bw+1), or (m, B) → (B, m)."""
+    return a.permute(2, 0, 1) if a.ndim == 3 else a.T
+
+
+def _from_b(a: torch.Tensor) -> torch.Tensor:
+    return (a.permute(1, 2, 0) if a.ndim == 3 else a.T).contiguous()
+
+
+def cholesky_t_plain(St: torch.Tensor, bw: int) -> torch.Tensor:
+    """Plain version of :func:`banded_cholesky_t`."""
+    return _from_b(bd.banded_cholesky(_to_b(St), bw))
+
+
+def refined_solve_t_plain(Lt, St, rt, bw: int, refine: int) -> torch.Tensor:
+    """Plain version of :func:`refined_banded_solve_t`."""
+    Lb, Sb, r = _to_b(Lt), _to_b(St), _to_b(rt)
+    x = bd.banded_solve(Lb, r, bw)
+    for _ in range(refine):
+        x = x + bd.banded_solve(Lb, r - bd.band_matvec(Sb, x, bw), bw)
+    return _from_b(x)
+
+
+def factor_solve_t_plain(St, rt, bw: int, refine: int):
+    """Plain version of :func:`factor_refined_solve_t`."""
+    Lt = cholesky_t_plain(St, bw)
+    return Lt, refined_solve_t_plain(Lt, St, rt, bw, refine)
+
+
+# ------------------------------------------------------------- kernels
+def banded_cholesky_t(St: torch.Tensor, bw: int) -> torch.Tensor:
+    """Batched band Cholesky in transposed storage: (m, bw+1, B) → L, same
+    layout, S = L Lᵀ per home.  Kernel ``band_cholesky_t``."""
+    m, B = _check("banded_cholesky_t", bw, bands=(St,))
+    if St.device.type == "cpu":
+        return cholesky_t_plain(St, bw)
+    L = torch.empty_like(St)
+    _launch("banded_cholesky_t", _lib().band_cholesky_t, St.device,
+            _ptr(St), _ptr(L), m, bw, B)
+    return L
+
+
+def refined_banded_solve_t(Lt, St, rt, bw: int, refine: int = 1) -> torch.Tensor:
+    """x ≈ S⁻¹ r via forward + backward substitution on the band factor,
+    then ``refine`` passes of x += (L Lᵀ)⁻¹ (r − S x), in one launch of
+    kernel ``band_refined_solve_t``.  Lt/St (m, bw+1, B), rt (m, B)."""
+    m, B = _check("refined_banded_solve_t", bw, bands=(Lt, St), vecs=(rt,))
+    if Lt.device.type == "cpu":
+        return refined_solve_t_plain(Lt, St, rt, bw, refine)
+    x, y, t = (torch.empty_like(rt) for _ in range(3))
+    _launch("refined_banded_solve_t", _lib().band_refined_solve_t, Lt.device,
+            _ptr(Lt), _ptr(St), _ptr(rt), _ptr(x), _ptr(y), _ptr(t),
+            m, bw, B, int(refine))
+    return x
+
+
+def factor_refined_solve_t(St, rt, bw: int, refine: int = 0):
+    """(L, x ≈ S⁻¹ r): the factor and the first refined solve in one launch
+    of kernel ``band_factor_solve_t``, so the thread reuses the factor it
+    has just written."""
+    m, B = _check("factor_refined_solve_t", bw, bands=(St,), vecs=(rt,))
+    if St.device.type == "cpu":
+        return factor_solve_t_plain(St, rt, bw, refine)
+    L = torch.empty_like(St)
+    x, y, t = (torch.empty_like(rt) for _ in range(3))
+    _launch("factor_refined_solve_t", _lib().band_factor_solve_t, St.device,
+            _ptr(St), _ptr(rt), _ptr(L), _ptr(x), _ptr(y), _ptr(t),
+            m, bw, B, int(refine))
+    return L, x
+
+
+# ------------------------------------------------------ shared dispatch
+def band_scatter_t(plan, contrib: torch.Tensor, index=None) -> torch.Tensor:
+    """Schur entry values (B, n_s) → transposed band storage (m, bw+1, B).
+    ``index`` is ``banded.plan_index(plan, contrib.device)``, if already
+    built."""
+    B = contrib.shape[0]
+    St = contrib.new_zeros((plan.m, plan.bw + 1, B))
+    row, off, src = index or bd.plan_index(plan, contrib.device)
+    St[row, off, :] = contrib[:, src].T
+    return St
+
+
+def make_band_ops(plan, device, fused: bool = False):
+    """The band operations the interior point runs on ``device``, in the
+    transposed layout: ``(scatter_fn, chol_fn, solve_fn, add_diag_fn,
+    factor_solve_fn)`` as ``pallas_band.make_band_ops`` returns them.
+
+    ``solve_fn(Lb, Sb, rp, refine)`` and ``factor_solve_fn(Sb, rp,
+    refine)`` take ``rp`` as (B, m) in permuted row order.  ``fused``
+    picks the one-launch factor + first solve for ``factor_solve_fn``;
+    the split route (factor kernel, then solve kernel) is the one the TPU
+    ran."""
+    bw = plan.bw
+    index = bd.plan_index(plan, device)
+
+    def chol_fn(Sb):
+        return banded_cholesky_t(Sb, bw)
+
+    def solve_fn(Lb, Sb, rp, refine):
+        return refined_banded_solve_t(Lb, Sb, rp.T.contiguous(), bw,
+                                      refine=refine).T
+
+    def add_diag_fn(Sb, rel):
+        Sb = Sb.clone()
+        Sb[:, 0, :] += rel * torch.amax(Sb[:, 0, :], dim=0, keepdim=True)
+        return Sb
+
+    if fused:
+        def factor_solve_fn(Sb, rp, refine):
+            Lb, x = factor_refined_solve_t(Sb, rp.T.contiguous(), bw,
+                                           refine=refine)
+            return Lb, x.T
+    else:
+        def factor_solve_fn(Sb, rp, refine):
+            Lb = chol_fn(Sb)
+            return Lb, solve_fn(Lb, Sb, rp, refine)
+
+    return (lambda c: band_scatter_t(plan, c, index),
+            chol_fn, solve_fn, add_diag_fn, factor_solve_fn)

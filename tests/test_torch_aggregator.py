@@ -1,0 +1,125 @@
+"""The PyTorch port's baseline run end to end (dragg_tpu_torch/aggregator.py
+on the CPU) against the JAX package's, on the tests/test_engine.py day-run
+community: results.json carries the same keys, and the same series to
+1e-4 absolute (two float32 solvers ~1e-5 apart; see test_torch_engine).
+Also: a CPU run of the port loads neither jax nor dragg_tpu, and an
+Aggregator built without a device needs a CUDA card."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dragg_tpu.aggregator import Aggregator as JaxAggregator
+from dragg_tpu_torch.aggregator import Aggregator
+from dragg_tpu_torch.config import default_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXACT_SUMMARY = ("OAT", "GHI", "TOU", "RP", "solver_iterations", "case", "horizon",
+                 "num_homes", "start_datetime", "end_datetime")
+
+
+def _day_config():
+    cfg = default_config()
+    cfg["community"].update(total_number_homes=6, homes_pv=1, homes_battery=1,
+                            homes_pv_battery=1)
+    cfg["simulation"]["end_datetime"] = "2015-01-02 00"
+    cfg["home"]["hems"]["prediction_horizon"] = 4
+    cfg["tpu"]["sharded"] = False
+    return cfg
+
+
+def _results(agg):
+    with open(os.path.join(agg.run_dir, "baseline", "results.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def day_runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("outputs")
+    ja = JaxAggregator(config=_day_config(), outputs_dir=str(out / "jax"))
+    ja.run()
+    ta = Aggregator(config=_day_config(), outputs_dir=str(out / "torch"), device="cpu")
+    ta.run()
+    return ja, _results(ja), ta, _results(ta)
+
+
+def test_results_schema_matches(day_runs):
+    ja, rj, ta, rt = day_runs
+    assert os.path.relpath(ta.run_dir, ta.outputs_dir) == os.path.relpath(
+        ja.run_dir, ja.outputs_dir)
+    assert list(rt) == list(rj)
+    for name in rj:
+        assert list(rt[name]) == list(rj[name]), name
+    assert ta.check_baseline_vals() == []
+
+
+def test_series_match(day_runs):
+    _, rj, _, rt = day_runs
+    for name, series in rj.items():
+        if name == "Summary":
+            continue
+        for key, v in series.items():
+            if isinstance(v, list):
+                np.testing.assert_allclose(rt[name][key], v, rtol=0, atol=1e-4,
+                                           err_msg=f"{name}.{key}")
+            else:
+                assert rt[name][key] == v
+        assert rt[name]["correct_solve"] == series["correct_solve"]
+    sj, st = rj["Summary"], rt["Summary"]
+    for key in EXACT_SUMMARY:
+        assert st[key] == sj[key], key
+    for key in ("p_grid_aggregate", "p_grid_setpoint", "p_max_aggregate"):
+        np.testing.assert_allclose(st[key], sj[key], rtol=0, atol=1e-4, err_msg=key)
+
+
+def test_cpu_run_loads_no_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "from dragg_tpu_torch.__main__ import main\n"
+        f"main(['run', '--config', {str(tmp_path / 'cfg.toml')!r}, '--outputs-dir', "
+        f"{str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
+        "print('LOADED', bad)\n")
+    # The shipped example config, cut to 3 homes × 3 steps, with the
+    # telemetry this package does not have yet turned off.
+    toml = open(os.path.join(REPO, "data", "config.example.toml")).read()
+    for a, b in (("total_number_homes = 10", "total_number_homes = 3"),
+                 ("homes_pv = 4", "homes_pv = 1"),
+                 ('end_datetime = "2015-01-04 00"', 'end_datetime = "2015-01-01 03"'),
+                 ("[telemetry]\nenabled = true", "[telemetry]\nenabled = false"),
+                 ("per_home = true", "per_home = false")):
+        assert a in toml, a
+        toml = toml.replace(a, b)
+    (tmp_path / "cfg.toml").write_text(toml)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout
+    assert os.path.exists(os.path.join(out.stdout.splitlines()[-2], "baseline", "results.json"))
+
+
+def test_default_device_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Aggregator(config=_day_config(), outputs_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("section,key,value", [
+    ("simulation", "run_rl_agg", True),
+    ("telemetry", "enabled", True),
+    ("fleet", "communities", 2),
+    ("scenarios", "pack", "dr_heavy"),
+    ("agg", "spp_enabled", True),
+])
+def test_out_of_slice_settings_raise(tmp_path, section, key, value):
+    cfg = _day_config()
+    cfg[section][key] = value
+    with pytest.raises(NotImplementedError, match=f"{section}.{key}"):
+        Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
