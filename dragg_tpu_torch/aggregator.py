@@ -137,6 +137,9 @@ class Aggregator:
         self.version = self.config["simulation"].get("named_version", "test")
         self.run_dir = None
         self._solve_iters: list[int] = []
+        # Home-steps that needed ReLU-QP's exact-refactorization tail over
+        # the run (StepOutputs.bank_fallback_count summed; 0 for the IPM).
+        self.bank_fallback_total = 0.0
 
     # ----------------------------------------------------------- population
     def _homes_cache_file(self) -> str:
@@ -192,6 +195,7 @@ class Aggregator:
         self.timestep = 0
         self.baseline_agg_load_list = []
         self._solve_iters = []
+        self.bank_fallback_total = 0.0
         self.extra_summary = {}
         self._phase_times = {"device_chunks": 0.0, "collect": 0.0}
         n = len(self.all_homes)
@@ -222,6 +226,7 @@ class Aggregator:
         agg_loads = host["agg_load"]
         self.baseline_agg_load_list.extend(float(v) for v in agg_loads)
         self._solve_iters.extend(int(v) for v in host["admm_iters"])
+        self.bank_fallback_total += float(np.sum(host["bank_fallback_count"]))
         n_repair_failed = float(np.sum(host["repair_failed"]))
         if n_repair_failed > 0:
             self.log.logger.progress(

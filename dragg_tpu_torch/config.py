@@ -68,7 +68,8 @@ def configured_solver(config: dict) -> str:
     return str(config["home"]["hems"].get("solver", "ipm"))
 
 
-# Batched solver families of the JAX package (this package runs "ipm"),
+# Batched solver families of the JAX package (this package runs "ipm" and
+# "reluqp"; "admm" raises NotImplementedError in engine.engine_params),
 # plus the mapping from the reference's solver names (the GLPK_MI/ECOS/
 # GUROBI table, dragg/mpc_calc.py:141-145, and the shipped config.toml
 # default "GLPK_MI") onto them, so an unmodified reference config runs: the
@@ -314,8 +315,14 @@ _DEFAULT: dict[str, Any] = {
     },
     # Solver and engine settings (no reference analog).
     "tpu": {
-        # ADMM and ReLU-QP solver settings: not ported (admm_rho and
-        # admm_reg also set the IPM's warm_rho carry and proximal term).
+        # ADMM and ReLU-QP solver settings.  ReLU-QP ("reluqp") reads
+        # admm_refactor_every (sim steps between rho-bank refreshes),
+        # admm_patience, the five reluqp_* keys, precision, iter_kernel
+        # and, below, admm_sigma/admm_alpha/admm_eps/admm_reg/admm_rho.
+        # The ADMM's own keys (admm_iters, admm_rho_update_every,
+        # admm_matvec_dtype, admm_refine, admm_anderson,
+        # admm_banded_factor, admm_solve_backend) are not ported.  admm_rho
+        # and admm_reg also set the IPM's warm_rho carry and proximal term.
         "admm_iters": 1500,
         "admm_refactor_every": 8,
         "admm_patience": 4,
@@ -330,8 +337,10 @@ _DEFAULT: dict[str, Any] = {
         "reluqp_bank": 5,
         "reluqp_iters": 2000,
         "reluqp_tail_iters": 300,
-        "precision": "f32",
-        "iter_kernel": "auto",
+        "precision": "f32",       # ReLU-QP hot-loop matmuls: "f32" | "bf16x3"
+        "iter_kernel": "auto",    # ReLU-QP check window: "auto" = "lax" (einsum
+                                  # chain); "pallas" = the fused CUDA kernel of
+                                  # ops/iter_kernels.py (f32 only)
         # Interior point.
         "ipm_warm_start": False,  # seed the IPM from the receding-horizon shift
         "ipm_iters": 0,           # Mehrotra iteration cap; 0 = 16 + (decision steps)/2

@@ -9,9 +9,11 @@ Each step, for every home-type bucket:
 2. gates each home's HVAC season on the noisy OAT forecast, drawn from
    JAX's own threefry streams (``rng.py``) so the gate matches the JAX
    package home by home (dragg/mpc_calc.py:206-231,302-309);
-3. assembles the fixed-shape batched QP and solves it with the interior
-   point (``ops/ipm.py``), whose band factor and solves run in the CUDA
-   kernels of ``ops/band_kernels.py``;
+3. assembles the fixed-shape batched QP and solves it with the configured
+   solver family: the interior point (``ops/ipm.py``), whose band factor
+   and solves run in the CUDA kernels of ``ops/band_kernels.py``, or
+   ReLU-QP (``ops/reluqp.py``), whose check windows run in the CUDA kernel
+   of ``ops/iter_kernels.py`` under ``tpu.iter_kernel = "pallas"``;
 4. pins the first action to integer duty counts in closed form
    (``integer_repair = "project"``);
 5. routes homes whose solve failed through the fallback controller
@@ -19,7 +21,10 @@ Each step, for every home-type bucket:
 
 PyTorch runs eagerly, so a chunk is a Python loop over steps; the per-home
 arrays (``HomeBatch``, ``CommunityState``, ``StepOutputs``) are
-NamedTuples of tensors in the JAX package's layout, homes first.
+NamedTuples of tensors in the JAX package's layout, homes first.  The
+ReLU-QP rho bank is a per-bucket carry that lives across the steps of a
+chunk and refreshes on the chunk's first step and every
+``admm_refactor_every`` sim steps (``run_chunk``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from dragg_tpu_torch.homes import TYPE_CODES, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
 from dragg_tpu_torch.models.fallback import fallback_control
 from dragg_tpu_torch.ops.ipm import band_plan, ipm_solve_qp
+from dragg_tpu_torch.ops.precision import validate_precision
+from dragg_tpu_torch.ops.reluqp import reluqp_solve_qp_cached
 from dragg_tpu_torch.ops.qp import (
     QPLayout,
     TAP_TEMP,
@@ -108,9 +115,10 @@ class CommunityState(NamedTuple):
     plan_cool: torch.Tensor   # (n, H) last feasible raw-duty plans (replay source)
     plan_heat: torch.Tensor   # (n, H)
     plan_wh: torch.Tensor     # (n, H)
-    warm_x: torch.Tensor      # (n, nvar) warm-start primal (0 columns unless ipm_warm)
+    warm_x: torch.Tensor      # (n, nvar) warm-start primal (0 columns for the
+                              # interior point unless ipm_warm)
     warm_y_box: torch.Tensor  # (n, nvar) warm-start box duals
-    warm_rho: torch.Tensor    # (n,) warm-start rho
+    warm_rho: torch.Tensor    # (n,) warm-start rho (ReLU-QP's bank hint)
     key: torch.Tensor         # (2,) PRNG key words (legacy carry, as in JAX)
 
 
@@ -145,7 +153,8 @@ class StepOutputs(NamedTuple):
     repair_failed: torch.Tensor    # () homes whose integer pin left the comfort band
     r_prim_max: torch.Tensor       # () max final primal residual (f32-max sentinel if non-finite)
     r_dual_max: torch.Tensor       # () max final dual residual
-    bank_fallback_count: torch.Tensor  # () always 0 (no rho bank in the IPM)
+    bank_fallback_count: torch.Tensor  # () homes that needed ReLU-QP's exact-
+                                       # refactorization tail (0 for the IPM)
 
 
 class StepAux(NamedTuple):
@@ -161,9 +170,10 @@ class StepAux(NamedTuple):
 
 
 class EngineParams(NamedTuple):
-    """Static engine configuration (the IPM path's share of the JAX
-    package's EngineParams)."""
+    """Static engine configuration (the interior point's and ReLU-QP's
+    share of the JAX package's EngineParams)."""
 
+    solver: str         # "ipm" | "reluqp"
     horizon: int        # H — decision steps (hems horizon * dt)
     dt: int             # steps per hour
     s: float            # sub_subhourly_steps (duty-cycle denominator)
@@ -171,6 +181,18 @@ class EngineParams(NamedTuple):
     start_index: int    # index of sim t=0 in the environment series
     reg: float          # proximal regularization (tpu.admm_reg)
     warm_rho: float     # initial warm_rho carry (tpu.admm_rho)
+    admm_eps: float     # ReLU-QP stopping tolerance (abs = rel)
+    admm_sigma: float   # ReLU-QP σ
+    admm_alpha: float   # ReLU-QP over-relaxation α
+    admm_patience: int  # check windows without progress before stopping
+    admm_refactor_every: int  # sim steps between rho-bank refreshes
+    reluqp_rho: float   # centre of the rho bank
+    reluqp_rho_factor: float  # geometric step of the rho bank
+    reluqp_bank: int    # rho-bank entries
+    reluqp_iters: int   # iteration cap of the banked loop
+    reluqp_tail_iters: int  # fallback exact-refactorization tail budget
+    precision: str      # hot-loop matmul policy ("f32" | "bf16x3")
+    iter_kernel: str    # "auto" | "pallas" | "lax" (check-window route)
     ipm_iters: int      # Mehrotra iteration cap
     ipm_tail_frac: float  # straggler sub-batch fraction (0 disables)
     ipm_tail_iters: int   # tail-phase iteration cap (0 = ipm_iters)
@@ -206,7 +228,13 @@ class Engine:
             torch.pow(torch.tensor(1.1, dtype=F32, device=dev),
                       torch.arange(H, dtype=F32, device=dev)),
             torch.tensor(params.forecast_noise_cap, dtype=F32, device=dev))
-        self._carry_warm = params.ipm_warm
+        # ReLU-QP always carries the receding-horizon warm start; the
+        # interior point only under ipm_warm_start.
+        self._carry_warm = params.solver != "ipm" or params.ipm_warm
+        # The check-window route: "auto" stays on the einsum ("lax") path,
+        # as in the JAX package; "pallas" runs ops/iter_kernels.fused_window
+        # (the CUDA kernel on the card, its plain version on the CPU).
+        self._iter_kernel = "lax" if params.iter_kernel == "auto" else params.iter_kernel
         if check_mask is None:
             check_mask = np.ones(batch.n_homes)
         cmask = np.asarray(check_mask, dtype=np.float64)
@@ -233,6 +261,11 @@ class Engine:
     def bucketed(self) -> bool:
         """Whether the community solves as per-type buckets."""
         return self._bucketed
+
+    @property
+    def iter_kernel(self) -> str:
+        """The resolved ReLU-QP check-window route: "lax" or "pallas"."""
+        return self._iter_kernel
 
     def bucket_info(self) -> list[dict]:
         """One dict per bucket: its type, home range, solved shape and the
@@ -268,6 +301,13 @@ class Engine:
             warm_rho=torch.full((n,), self.params.warm_rho, dtype=F32, device=dev),
             key=rng.prng_key(self.params.seed, dev),
         )
+
+    def init_factor(self):
+        """The solver carry at a chunk's start, one per bucket (a tuple)
+        when bucketed: None, because a chunk's first step always builds
+        ReLU-QP's scalings and rho bank afresh (the interior point carries
+        nothing).  ``_solve`` returns the carry the next step reuses."""
+        return (None,) * len(self._buckets) if self._bucketed else None
 
     # ----------------------------------------------------------------- step
     def _prepare(self, ctx: _TypeBucket, state: CommunityState, t: int, rp):
@@ -329,23 +369,40 @@ class Engine:
         )
         return qp, aux
 
-    def _solve(self, ctx: _TypeBucket, state: CommunityState, qp):
-        """Solve phase for one bucket: the interior point on the relaxed
+    def _solve(self, ctx: _TypeBucket, state: CommunityState, qp, factor, refresh: bool):
+        """Solve phase for one bucket: the configured solver on the relaxed
         QP, then the closed-form integer pin of the first action.  Returns
-        (solution, relaxed solution, repair_failed)."""
+        (solution, solver carry, relaxed solution, repair_failed)."""
         p = self.params
-        relaxed = ipm_solve_qp(
-            ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
-            reg=p.reg, iters=p.ipm_iters,
-            tail_frac=p.ipm_tail_frac, tail_iters=p.ipm_tail_iters,
-            eps_abs=p.ipm_eps, eps_rel=p.ipm_eps,
-            x0=state.warm_x if p.ipm_warm else None,
-            freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
-        )
+        if p.solver == "reluqp":
+            # The pre-factorized dense family: the carry holds the rho bank;
+            # ``refresh`` re-equilibrates and rebuilds it.  Warm-started from
+            # the receding-horizon shift of the last relaxed solution.
+            relaxed, factor = reluqp_solve_qp_cached(
+                ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
+                factor, refresh,
+                rho0=p.reluqp_rho, rho_factor=p.reluqp_rho_factor,
+                bank=p.reluqp_bank, sigma=p.admm_sigma, alpha=p.admm_alpha,
+                eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
+                iters=p.reluqp_iters, patience=p.admm_patience,
+                tail_iters=p.reluqp_tail_iters, precision=p.precision,
+                iter_kernel=self._iter_kernel,
+                x0=state.warm_x, y_box0=state.warm_y_box, rho_warm=state.warm_rho,
+            )
+        else:
+            relaxed = ipm_solve_qp(
+                ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
+                reg=p.reg, iters=p.ipm_iters,
+                tail_frac=p.ipm_tail_frac, tail_iters=p.ipm_tail_iters,
+                eps_abs=p.ipm_eps, eps_rel=p.ipm_eps,
+                x0=state.warm_x if p.ipm_warm else None,
+                freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
+            )
         if not p.integer_first_action:
-            return relaxed, relaxed, torch.zeros((), dtype=F32, device=self.device)
+            return (relaxed, factor, relaxed,
+                    torch.zeros((), dtype=F32, device=self.device))
         sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed)
-        return sol, relaxed, repair_failed
+        return sol, factor, relaxed, repair_failed
 
     def _integerize_first_action(self, ctx: _TypeBucket, qp, sol):
         """Pin the three k=0 duty counts to rounded values (the reference's
@@ -524,7 +581,10 @@ class Engine:
             repair_failed=repair_failed,
             r_prim_max=res_max(sol.r_prim),
             r_dual_max=res_max(sol.r_dual),
-            bank_fallback_count=torch.zeros((), dtype=F32, device=dev),
+            bank_fallback_count=(
+                torch.sum(torch.where(sol.bank_fallback, mask, 0.0))
+                if sol.bank_fallback is not None
+                else torch.zeros((), dtype=F32, device=dev)),
         )
         return new_state, out
 
@@ -548,38 +608,54 @@ class Engine:
                 merged[f] = torch.cat(leaves, dim=0)
         return StepOutputs(**merged)
 
-    def _step_bucket(self, ctx, state_b, t, rp):
+    def _step_bucket(self, ctx, state_b, t, rp, refresh, factor_b):
         """assemble → solve → merge/collect for one bucket."""
         qp, aux = self._prepare(ctx, state_b, t, rp)
-        sol, warm_sol, repair_failed = self._solve(ctx, state_b, qp)
-        return self._finish(ctx, state_b, t, sol, aux, warm_sol, repair_failed)
+        sol, factor_b, warm_sol, repair_failed = self._solve(
+            ctx, state_b, qp, factor_b, refresh)
+        new_state, out = self._finish(ctx, state_b, t, sol, aux, warm_sol,
+                                      repair_failed)
+        return new_state, factor_b, out
 
-    def _step(self, state, t: int, rp):
-        """One community timestep; bucketed engines step each bucket at its
-        own shape and merge the outputs back into community order."""
-        states = state if self._bucketed else (state,)
-        parts = [self._step_bucket(c, s, t, rp)
-                 for c, s in zip(self._buckets, states)]
-        new_states, outs = zip(*parts)
-        new_state = tuple(new_states) if self._bucketed else new_states[0]
-        return new_state, self._merge_outputs(list(outs))
+    def _step(self, state, t: int, rp, refresh: bool, factor):
+        """One community timestep: (new_state, new solver carry, outputs).
+        Bucketed engines step each bucket at its own shape (state and carry
+        are per-bucket tuples) and merge the outputs back into community
+        order."""
+        wrap = (lambda a: a) if self._bucketed else (lambda a: (a,))
+        parts = [self._step_bucket(c, s, t, rp, refresh, f)
+                 for c, s, f in zip(self._buckets, wrap(state), wrap(factor))]
+        new_states, factors, outs = zip(*parts)
+        unwrap = tuple if self._bucketed else (lambda a: a[0])
+        return unwrap(new_states), unwrap(factors), self._merge_outputs(list(outs))
 
     # ------------------------------------------------------------------ api
     def _rp(self, rp) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rp), dtype=F32, device=self.device)
 
     def step(self, state, t: int, rp) -> tuple:
-        """Run a single timestep: (new_state, StepOutputs)."""
-        return self._step(state, int(t), self._rp(rp))
+        """Run a single timestep: (new_state, StepOutputs).  A single step
+        always refreshes the solver carry."""
+        state, _, out = self._step(state, int(t), self._rp(rp), True,
+                                   self.init_factor())
+        return state, out
 
     def run_chunk(self, state, t0: int, rps) -> tuple:
         """Run ``rps.shape[0]`` timesteps from sim step ``t0``; ``rps`` is
         (n_steps, H) reward prices (zeros for the baseline case).  Returns
-        (final_state, outputs stacked along time)."""
+        (final_state, outputs stacked along time).
+
+        The solver carry is chunk-local, as the JAX package's ``_chunk``: it
+        refreshes on the chunk's first step, then on every sim step t with
+        ``t % admm_refactor_every == 0``, and is dropped at the chunk's end."""
         rps = self._rp(rps)
+        K = max(1, self.params.admm_refactor_every)
+        factor = self.init_factor()
         outs = []
         for i in range(rps.shape[0]):
-            state, out = self._step(state, int(t0) + i, rps[i])
+            t = int(t0) + i
+            state, factor, out = self._step(state, t, rps[i], i == 0 or t % K == 0,
+                                            factor)
             outs.append(out)
         return state, StepOutputs(*[torch.stack(leaves) for leaves in zip(*outs)])
 
@@ -594,9 +670,11 @@ def engine_params(config, start_index: int) -> EngineParams:
     dt = int(config["agg"]["subhourly_steps"])
     tpu_cfg = config.get("tpu", {})
     horizon = max(1, int(hems["prediction_horizon"]) * dt)
-    if resolve_solver_family(config) != "ipm":
+    solver = resolve_solver_family(config)
+    if solver == "admm":
         raise NotImplementedError(
-            "home.hems.solver: only the interior point ('ipm') is ported")
+            "home.hems.solver: the ADMM ('admm') is not ported; 'ipm' and "
+            "'reluqp' are")
     repair_mode = str(tpu_cfg.get("integer_repair", "project"))
     if repair_mode not in ("project", "resolve"):
         raise ValueError(
@@ -620,7 +698,18 @@ def engine_params(config, start_index: int) -> EngineParams:
     if config.get("telemetry", {}).get("per_home", False):
         raise NotImplementedError(
             "telemetry.per_home: the per-home observatory is not ported")
+    precision = validate_precision(str(tpu_cfg.get("precision", "f32")))
+    iter_kernel = str(tpu_cfg.get("iter_kernel", "auto"))
+    if iter_kernel not in ("auto", "pallas", "lax"):
+        raise ValueError(
+            f"tpu.iter_kernel must be auto|pallas|lax, got {iter_kernel!r}")
+    if iter_kernel == "pallas" and precision != "f32":
+        raise ValueError(
+            "tpu.iter_kernel='pallas' requires tpu.precision='f32': the fused "
+            "window computes its residual maxima in the kernel and is f32 "
+            "end to end")
     return EngineParams(
+        solver=solver,
         horizon=horizon,
         dt=dt,
         s=float(max(1, int(hems["sub_subhourly_steps"]))),
@@ -628,6 +717,18 @@ def engine_params(config, start_index: int) -> EngineParams:
         start_index=int(start_index),
         reg=float(tpu_cfg.get("admm_reg", 1e-3)),
         warm_rho=float(tpu_cfg.get("admm_rho", 0.1)),
+        admm_eps=float(tpu_cfg.get("admm_eps", 1e-4)),
+        admm_sigma=float(tpu_cfg.get("admm_sigma", 1e-6)),
+        admm_alpha=float(tpu_cfg.get("admm_alpha", 1.6)),
+        admm_patience=int(tpu_cfg.get("admm_patience", 4)),
+        admm_refactor_every=int(tpu_cfg.get("admm_refactor_every", 8)),
+        reluqp_rho=float(tpu_cfg.get("reluqp_rho", 0.1)),
+        reluqp_rho_factor=float(tpu_cfg.get("reluqp_rho_factor", 6.0)),
+        reluqp_bank=max(1, int(tpu_cfg.get("reluqp_bank", 5))),
+        reluqp_iters=int(tpu_cfg.get("reluqp_iters", 2000)),
+        reluqp_tail_iters=int(tpu_cfg.get("reluqp_tail_iters", 300)),
+        precision=precision,
+        iter_kernel=iter_kernel,
         # 0 = horizon-aware default (iterations needed grow with H).
         ipm_iters=int(tpu_cfg.get("ipm_iters", 0)) or 16 + horizon // 2,
         ipm_tail_frac=float(tpu_cfg.get("ipm_tail_frac", 0.25)),

@@ -1,7 +1,8 @@
 """The pieces of ``dragg_tpu/ops/admm.py`` that the interior point uses:
 the solution record, the cached Schur triple lists, the padded gather and
-the Ruiz equilibration.  The ADMM solver itself is not in this package
-yet (``hems.solver = "admm"`` raises)."""
+the Ruiz equilibration, shared by the interior point and ReLU-QP.  The
+ADMM solver itself is not in this package yet (``hems.solver = "admm"``
+raises)."""
 
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ class ADMMSolution(NamedTuple):
     rho: torch.Tensor      # (B,) (ones for the interior point)
     conv_iters: torch.Tensor | None = None  # (B,) int32 live iterations per home
     diverged: torch.Tensor | None = None    # (B,) bool certified divergence
+    bank_fallback: torch.Tensor | None = None  # (B,) bool: the ReLU-QP home needed
+                                               # the exact-refactorization tail
 
 
 def _pad_gather(vals: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

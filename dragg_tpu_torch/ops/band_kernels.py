@@ -14,84 +14,25 @@ tensor runs the kernel's plain PyTorch version — the module-7 band path of
 ``ops/banded.py`` in the transposed layout, the same recurrences and
 operation order.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The library is compiled with nvcc on first use (a plain C interface bound
-with ctypes) into ``_build/`` beside the package.
+The kernels are built and bound by ``ops/cuda_lib.py`` on first use.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-
 import torch
 
 from dragg_tpu_torch.ops import banded as bd
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc", "band.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from dragg_tpu_torch.ops.cuda_lib import launch, lib, ptr
 
 # Kernel launches per wrapper since the last reset: a wrapper adds one
 # exactly where it launches its kernel, never on the CPU path.
 LAUNCHES = {"banded_cholesky_t": 0, "refined_banded_solve_t": 0,
             "factor_refined_solve_t": 0}
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the band kernels build with the CUDA "
-                       "toolkit (PATH or /usr/local/cuda/bin)")
-
-
-def build_library() -> str:
-    """Compile ``csrc/band.cu`` (once per source content) and return the
-    shared library's path."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libdraggband-{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_CSRC}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
-
-
-def _lib():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build_library())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.band_cholesky_t.argtypes = [p, p, i, i, i, p]
-            lib.band_refined_solve_t.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-            lib.band_factor_solve_t.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-            for fn in (lib.band_cholesky_t, lib.band_refined_solve_t,
-                       lib.band_factor_solve_t):
-                fn.restype = i
-            _LIB = lib
-        return _LIB
 
 
 def _check(name: str, bw: int, bands=(), vecs=()) -> tuple[int, int]:
@@ -111,19 +52,6 @@ def _check(name: str, bw: int, bands=(), vecs=()) -> tuple[int, int]:
             raise ValueError(f"{name}: inputs must be contiguous float32 on one "
                              f"device, got {a.dtype} on {a.device}")
     return m, B
-
-
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    """Launch on the device's current stream; raise on a refused launch."""
-    stream = torch.cuda.current_stream(device)
-    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
-
-
-def _ptr(a: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(a.data_ptr())
 
 
 # ------------------------------------------------------ plain versions
@@ -164,8 +92,8 @@ def banded_cholesky_t(St: torch.Tensor, bw: int) -> torch.Tensor:
     if St.device.type == "cpu":
         return cholesky_t_plain(St, bw)
     L = torch.empty_like(St)
-    _launch("banded_cholesky_t", _lib().band_cholesky_t, St.device,
-            _ptr(St), _ptr(L), m, bw, B)
+    launch(LAUNCHES, "banded_cholesky_t", lib().band_cholesky_t, St.device,
+           ptr(St), ptr(L), m, bw, B)
     return L
 
 
@@ -177,9 +105,9 @@ def refined_banded_solve_t(Lt, St, rt, bw: int, refine: int = 1) -> torch.Tensor
     if Lt.device.type == "cpu":
         return refined_solve_t_plain(Lt, St, rt, bw, refine)
     x, y, t = (torch.empty_like(rt) for _ in range(3))
-    _launch("refined_banded_solve_t", _lib().band_refined_solve_t, Lt.device,
-            _ptr(Lt), _ptr(St), _ptr(rt), _ptr(x), _ptr(y), _ptr(t),
-            m, bw, B, int(refine))
+    launch(LAUNCHES, "refined_banded_solve_t", lib().band_refined_solve_t,
+           Lt.device, ptr(Lt), ptr(St), ptr(rt), ptr(x), ptr(y), ptr(t),
+           m, bw, B, int(refine))
     return x
 
 
@@ -192,9 +120,9 @@ def factor_refined_solve_t(St, rt, bw: int, refine: int = 0):
         return factor_solve_t_plain(St, rt, bw, refine)
     L = torch.empty_like(St)
     x, y, t = (torch.empty_like(rt) for _ in range(3))
-    _launch("factor_refined_solve_t", _lib().band_factor_solve_t, St.device,
-            _ptr(St), _ptr(rt), _ptr(L), _ptr(x), _ptr(y), _ptr(t),
-            m, bw, B, int(refine))
+    launch(LAUNCHES, "factor_refined_solve_t", lib().band_factor_solve_t,
+           St.device, ptr(St), ptr(rt), ptr(L), ptr(x), ptr(y), ptr(t),
+           m, bw, B, int(refine))
     return L, x
 
 

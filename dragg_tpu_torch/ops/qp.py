@@ -350,6 +350,22 @@ def schur_contrib(index, vals_s, Dinv) -> torch.Tensor:
                      dim=2)
 
 
+def scatter_schur(ss: SchurStructure, m: int, contrib) -> torch.Tensor:
+    """Schur entry values (B, n_s) → dense (B, m, m)."""
+    S = contrib.new_zeros((contrib.shape[0], m, m))
+    S[:, torch.as_tensor(ss.s_rows, dtype=torch.long, device=contrib.device),
+      torch.as_tensor(ss.s_cols, dtype=torch.long, device=contrib.device)] = contrib
+    return S
+
+
+def form_schur_sparse(ss: SchurStructure, m: int, vals_s, Dinv, index=None) -> torch.Tensor:
+    """The dense (B, m, m) S = Â D⁻¹ Âᵀ from the sparse values via the
+    triple lists, with no dense A anywhere.  ``index`` is
+    ``schur_index(ss, device)``, if already built."""
+    return scatter_schur(ss, m, schur_contrib(index or schur_index(ss, vals_s.device),
+                                              vals_s, Dinv))
+
+
 _NO_POS = np.zeros(0, dtype=np.int64)  # empty per-step-band position sentinel
 
 

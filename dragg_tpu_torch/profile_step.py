@@ -1,16 +1,24 @@
-"""Where one engine step's time goes on the GPU.
+"""Where the engine's step time goes on the GPU.
 
-    python -m dragg_tpu_torch.profile_step [--homes 10000] [--steps 3]
+    python -m dragg_tpu_torch.profile_step [--homes 10000] [--steps 8]
+                                           [--solver ipm|reluqp]
 
 Builds the mixed community (the legacy bench mix: 40 % pv_only, 10 %
-battery_only, 10 % pv_battery, the rest base; 24 h horizon), runs one
-warm-up step, then times ``--steps`` engine steps with the host clock
-(synchronised, profiler off) and traces ``--steps`` more with
-``torch.profiler``.  Prints one JSON
-object: seconds per step, device kernel time per step (total, the band
-kernels, the rest), kernel launches per step, the device's busy share of
-the step, and the top kernels by device time.  The full table goes to
-``chiprun_out/profile_step.json``.
+battery_only, 10 % pv_battery, the rest base; 24 h horizon) and steps it
+through ``Engine.run_chunk``, as the aggregator does: a warm-up chunk of
+``--steps`` steps from t = 0, a chunk of ``--steps`` more timed with the
+host clock (synchronised, profiler off), and a third traced with
+``torch.profiler``.  Each chunk starts a fresh solver carry, so with
+``--steps`` equal to ``admm_refactor_every`` (8, the default) each timed
+chunk holds exactly one ReLU-QP rho-bank refresh, the main path's
+cadence (t = 0, 8 and 16 of the day).  ``--solver reluqp`` runs the fused
+window kernel (``tpu.iter_kernel = "pallas"``).
+
+Prints one JSON object: seconds per step, device kernel time per step
+(total; the band kernels; the fused window; the rho-bank build, from its
+profiler range), kernel launches per step, the device's busy share of the
+step, and the top kernels by device time.  The full table goes to
+``chiprun_out/profile_step_<solver>.json``.
 """
 
 from __future__ import annotations
@@ -21,9 +29,12 @@ import os
 import tempfile
 import time
 
+BAND_KERNELS = ("chol_kernel<", "refined_solve_kernel<", "factor_solve_kernel<")
+WINDOW_KERNEL = "fused_window_kernel"
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+
+def _device_us(evt, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:
+    for attr in attrs:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
@@ -32,7 +43,8 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="dragg_tpu_torch.profile_step")
     p.add_argument("--homes", type=int, default=10_000)
-    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--solver", choices=("ipm", "reluqp"), default="ipm")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -41,50 +53,59 @@ def main(argv=None) -> int:
 
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.config import mixed_community_config
+    from dragg_tpu_torch.ops.reluqp import BANK_BUILD_RANGE
 
-    n = args.homes
-    cfg = mixed_community_config(n, 24, "2015-01-02 00")
+    n, k = args.homes, args.steps
+    cfg = mixed_community_config(n, 24, "2015-01-02 00", iter_kernel="pallas")
+    cfg["home"]["hems"]["solver"] = args.solver
     with tempfile.TemporaryDirectory() as d:
         agg = Aggregator(cfg, outputs_dir=d, device="cuda")
         agg.get_homes()
         agg._build_engine()
     eng = agg.engine
-    rp = np.zeros(eng.params.horizon, np.float32)
-    state, _ = eng.step(eng.init_state(), 0, rp)        # warm-up
+    rps = np.zeros((k, eng.params.horizon), np.float32)
+    state, _ = eng.run_chunk(eng.init_state(), 0, rps)       # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(1, 1 + args.steps):
-        state, out = eng.step(state, t, rp)
+    state, _ = eng.run_chunk(state, k, rps)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / args.steps       # profiler off
+    wall = (time.perf_counter() - t0) / k                    # profiler off
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in range(1 + args.steps, 1 + 2 * args.steps):
-            state, out = eng.step(state, t, rp)
+        state, out = eng.run_chunk(state, 2 * k, rps)
         torch.cuda.synchronize()
 
-    kernels = []
+    kernels, bank_us = [], 0.0
     for evt in prof.key_averages():
+        if evt.key == BANK_BUILD_RANGE:
+            # The range's device span, not a kernel: the time of the
+            # kernels launched inside it.
+            bank_us = _device_us(evt, ("device_time_total", "cuda_time_total"))
+            continue
         us = _device_us(evt)
         if us > 0 and evt.device_type.name == "CUDA":
-            kernels.append((evt.key, us / args.steps, evt.count / args.steps))
-    kernels.sort(key=lambda k: -k[1])
-    total_ms = sum(k[1] for k in kernels) / 1e3
-    band_ms = sum(k[1] for k in kernels if any(
-        b in k[0] for b in ("chol_kernel<", "refined_solve_kernel<",
-                            "factor_solve_kernel<"))) / 1e3
-    launches = sum(k[2] for k in kernels)
+            kernels.append((evt.key, us / k, evt.count / k))
+    kernels.sort(key=lambda e: -e[1])
+    total_ms = sum(e[1] for e in kernels) / 1e3
+    band_ms = sum(e[1] for e in kernels if any(b in e[0] for b in BAND_KERNELS)) / 1e3
+    window_ms = sum(e[1] for e in kernels if WINDOW_KERNEL in e[0]) / 1e3
     result = dict(
-        card=torch.cuda.get_device_name(0), homes=n, steps=args.steps,
+        card=torch.cuda.get_device_name(0), homes=n, steps=k, solver=args.solver,
+        iter_kernel=eng.iter_kernel if args.solver == "reluqp" else None,
         s_per_step=wall, device_ms_per_step=total_ms, band_kernel_ms_per_step=band_ms,
-        other_kernel_ms_per_step=total_ms - band_ms, kernel_launches_per_step=launches,
+        fused_window_ms_per_step=window_ms,
+        fused_window_share=window_ms / total_ms if total_ms else 0.0,
+        bank_build_ms_per_step=bank_us / k / 1e3 if bank_us else "not measured",
+        other_kernel_ms_per_step=total_ms - band_ms - window_ms,
+        kernel_launches_per_step=sum(e[2] for e in kernels),
         device_busy_share=total_ms / 1e3 / wall,
         solve_rate=float(out.correct_solve.float().mean()),
-        top=[dict(name=k[0][:90], ms_per_step=k[1] / 1e3, calls_per_step=k[2])
-             for k in kernels[:15]],
+        iterations_per_step=[int(v) for v in out.admm_iters.cpu()],
+        top=[dict(name=e[0][:90], ms_per_step=e[1] / 1e3, calls_per_step=e[2])
+             for e in kernels[:15]],
     )
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_step.json"), "w") as f:
-        json.dump(dict(result, all=[list(k) for k in kernels]), f, indent=1)
+    with open(os.path.join("chiprun_out", f"profile_step_{args.solver}.json"), "w") as f:
+        json.dump(dict(result, all=[list(e) for e in kernels]), f, indent=1)
     print(json.dumps(result))
     return 0
 

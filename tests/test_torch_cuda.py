@@ -1,5 +1,6 @@
-"""The port's CUDA band kernels on the card against their plain PyTorch
-versions (bit for bit: both round every multiply and add separately).
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions: the band kernels bit for bit (both round every multiply and add
+separately), the fused ReLU-QP window to float32 sum-order rounding.
 Marked ``cuda``: they skip without a CUDA device; run them on the GPU with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
@@ -39,3 +40,43 @@ def test_kernels_match_plain_versions(card, bw):
     torch.cuda.synchronize()
     assert bk.LAUNCHES == {"banded_cholesky_t": 1, "refined_banded_solve_t": 2,
                            "factor_refined_solve_t": 2}
+
+
+@pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64)])
+def test_fused_window_matches_plain_version(card, m, n, B):
+    """The fused ReLU-QP window against its plain version on a consistent
+    fixture (S⁻¹ the inverse of Â D⁻¹ Âᵀ): rtol 1e-3 / atol 1e-4, the sums
+    being taken in another order; any slice of homes reproduces the full
+    batch bit for bit."""
+    from dragg_tpu_torch.ops import iter_kernels as ik
+
+    g = torch.Generator(device=card).manual_seed(m)
+    rnd = lambda *s: torch.rand(s, device=card, generator=g)  # noqa: E731
+    A = (torch.randn((B, m, n), device=card, generator=g) * 0.5)
+    w = 0.5 + rnd(B, n)
+    rho = torch.full((B,), 0.4, device=card)
+    pd = torch.full((B, n), 1e-3, device=card)
+    Dinv = 1.0 / (pd + 1e-6 + rho[:, None] * w * w)
+    S = torch.einsum("bmn,bn,bkn->bmk", A.double(), Dinv.double(), A.double())
+    Sinv = torch.linalg.inv(S + 1e-4 * torch.eye(m, device=card, dtype=torch.float64))
+    Sinv = Sinv.float().contiguous()
+    ls, us = -1.0 - rnd(B, n), 1.0 + rnd(B, n)
+    args = (A, Sinv, Dinv, w, torch.randn((B, n), device=card, generator=g),
+            torch.randn((B, m), device=card, generator=g), ls, us, rho,
+            0.1 * torch.randn((B, n), device=card, generator=g),
+            torch.minimum(torch.maximum(torch.randn((B, n), device=card, generator=g), ls), us),
+            0.1 * torch.randn((B, m), device=card, generator=g),
+            0.1 * torch.randn((B, n), device=card, generator=g),
+            0.5 + rnd(B, m), 0.5 + rnd(B, n), 0.5 + rnd(B, n), pd)
+    ik.reset_launches()
+    for k in (1, 25):
+        out = ik.fused_window(*args, k=k, sigma=1e-6, alpha=1.6)
+        ref = ik.fused_window_plain(*args, k=k, sigma=1e-6, alpha=1.6)
+        for a, b in zip(out[0] + out[1], ref[0] + ref[1]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+        part = ik.fused_window(*(a[3:17].contiguous() for a in args), k=k,
+                               sigma=1e-6, alpha=1.6)
+        for a, b in zip(part[0] + part[1], out[0] + out[1]):
+            assert torch.equal(a, b[3:17])
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES == {"fused_window": 4}
