@@ -19,7 +19,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    error against a float64 evaluation at most twice the plain version's;
    times kernel and plain version,
    which is also the iter_kernel = "lax" route (the batched-einsum chain)
-   and the yardstick;
+   and the yardstick; then the same at the four bucket shapes of a 48 h
+   horizon (B = bucket and 1,001), two of them on a 2-block cluster;
 4. correctness on small inputs: interior-point and ReLU-QP objectives
    within 1 % of HiGHS on a 16-home, 24 h community QP; an 8-home engine
    run on the card against the same run on the CPU, for each solver;
@@ -35,6 +36,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    ReLU-QP run both ways at a 4 h horizon, outputs equal under the
    flip-aware assertion set, and at 24 h, its disagreement measured and
    held to noise bounds (route_check);
+8. H = 48: a 1,000-home, 2-step ReLU-QP run through the fused window
+   kernel (launch counts reset just before it), held against the lax
+   route within route_check's H = 24 noise bounds;
 
 then prints the kernels JSON line, the card line and, last, the result
 line.  Per-shape details go to chiprun_out/chip_smoke.json.
@@ -44,7 +48,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -63,9 +66,9 @@ WINDOW = "fused_window"
 WINDOW_SOURCE = "dragg_tpu_torch/csrc/iter.cu"
 WINDOW_REPLACES = "dragg_tpu/ops/pallas_iter.py:180"
 L_TOL, X_TOL = 1e-5, 1e-4   # pallas_band's self-test bounds (pallas_band.py:270-276)
-# The fused window against its plain version: the float32 sums run in
+# The fused window is held against its plain version at rtol 1e-3 / atol
+# 1e-4 (dragg_tpu_torch/bench_window.check_window): the float32 sums run in
 # another order (tests/test_pallas_iter.py holds the Pallas kernel so).
-W_RTOL, W_ATOL = 1e-3, 1e-4
 CHECK_EVERY = 25            # ReLU-QP's check window (ops/reluqp.py check_every)
 
 
@@ -91,23 +94,6 @@ def community_config(n_homes: int, horizon: int, end: str, **tpu):
 
 
 # ------------------------------------------------------------ kernels
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def random_band(m: int, bw: int, B: int, seed: int):
     """A diagonally dominant band SPD system: (m, bw+1, B) S and (m, B) r."""
     import torch
@@ -161,6 +147,7 @@ def kernel_phase(shapes) -> dict:
     (bucket, m, bw, B_bucket)."""
     import torch
 
+    from dragg_tpu_torch.bench_window import cuda_ms
     from dragg_tpu_torch.ops import band_kernels as bk
 
     err = {k: 0.0 for k in REPLACES}
@@ -219,94 +206,47 @@ def kernel_phase(shapes) -> dict:
     return {"max_abs_err": err, "per_shape": per_shape}
 
 
-def window_bounds(m: int, n: int, B: int, k: int) -> tuple[float, float]:
-    """(seconds by bytes, seconds by operations) of one fused window: every
-    input read once (Â, S⁻¹, eleven n-vectors, three m-vectors, ρ), every
-    output written once (three n-vectors, one m-vector, four scalars), and
-    k(4mn + 2m²) + 4mn float32 operations per home."""
-    nbytes = 4 * B * (m * n + m * m + 14 * n + 4 * m + 5)
-    ops = B * (k * (4 * m * n + 2 * m * m) + 4 * m * n)
-    return nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOP_PER_S
-
-
-def window_fixture(m: int, n: int, B: int, seed: int) -> tuple:
-    """A consistent window input on the card (tests/test_pallas_iter.py):
-    S⁻¹ is the inverse of Â D⁻¹ Âᵀ at the given rho, so the window is the
-    real contractive solver map; a random S⁻¹ diverges over 25 iterations
-    and a comparison then measures only noise."""
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    rnd = lambda *s: torch.rand(s, device="cuda", generator=g)  # noqa: E731
-    nrm = lambda *s: torch.randn(s, device="cuda", generator=g)  # noqa: E731
-    A = 0.5 * nrm(B, m, n)
-    w = 0.5 + rnd(B, n)
-    rho = torch.full((B,), 0.4, device="cuda")
-    p_diag = torch.full((B, n), 1e-3, device="cuda")
-    Dinv = 1.0 / (p_diag + 1e-6 + rho[:, None] * w * w)
-    Ad = A.double()
-    S = torch.einsum("bmn,bn,bkn->bmk", Ad, Dinv.double(), Ad)
-    Sinv = torch.linalg.inv(S + 1e-4 * torch.eye(m, device="cuda", dtype=torch.float64))
-    del Ad, S
-    ls, us = -1.0 - rnd(B, n), 1.0 + rnd(B, n)
-    z = torch.minimum(torch.maximum(nrm(B, n), ls), us)
-    return (A, Sinv.float().contiguous(), Dinv, w, nrm(B, n), nrm(B, m), ls, us, rho,
-            0.1 * nrm(B, n), z, 0.1 * nrm(B, m), 0.1 * nrm(B, n),
-            0.5 + rnd(B, m), 0.5 + rnd(B, n), 0.5 + rnd(B, n), p_diag)
-
-
-def window_phase(shapes) -> dict:
-    """The fused window against its plain version at every shape, k = 25
-    and k = 1, a slice of homes against the full batch bit for bit, and
-    timings at the main path's (bucket) shapes.  ``shapes`` is a list of
-    (bucket, m, n, B_bucket)."""
-    import torch
-
+def window_phase(shapes, sizes=(N_HOMES, 1001)) -> dict:
+    """The fused window against its plain version at every shape and at
+    its bucket's B and each of ``sizes``, k = 25 and k = 1, a slice of
+    homes against the full batch bit for bit; at the bucket's B, its error
+    against a float64 evaluation at most twice the plain version's, and
+    timings.  ``shapes`` is a list of (bucket, m, n, B_bucket)."""
+    from dragg_tpu_torch.bench_window import (KW, check_window, cuda_ms, window_bounds,
+                                              window_fixture)
     from dragg_tpu_torch.ops import iter_kernels as ik
 
-    kw = dict(sigma=1e-6, alpha=1.6)   # the engine's admm_sigma / admm_alpha
+    def kernel(args, k):
+        return ik.fused_window(*args, k=k, **KW)
+
     err, per_shape = 0.0, []
     for si, (bucket, m, n, nb) in enumerate(shapes):
-        for B in dict.fromkeys((nb, N_HOMES, 1001)):
+        plan = ik.window_plan(m, n)
+        for B in dict.fromkeys((nb, *sizes)):
             args = window_fixture(m, n, B, seed=1000 + 100 * si + B % 97)
             for k in (CHECK_EVERY, 1):
-                st, res = ik.fused_window(*args, k=k, **kw)
-                st_p, res_p = ik.fused_window_plain(*args, k=k, **kw)
-                torch.cuda.synchronize()
-                for a, b, name in zip(st + res, st_p + res_p,
-                                      ("x", "z", "nu", "y", "r_prim", "r_dual", "p_sc", "d_sc")):
-                    bad = ((a - b).abs() > W_ATOL + W_RTOL * b.abs()).sum().item()
-                    check(bad == 0, f"fused_window {bucket} B={B} k={k}: {name} differs "
-                                    f"from its plain version at {bad} entries")
-                    err = max(err, (a - b).abs().max().item())
-                lo = B // 3
-                hi = min(B, lo + 257)
-                part = ik.fused_window(*(a[lo:hi].contiguous() for a in args), k=k, **kw)
-                for a, b in zip(part[0] + part[1], st + res):
-                    check(torch.equal(a, b[lo:hi]),
-                          f"fused_window {bucket} B={B} k={k}: homes {lo}:{hi} alone "
-                          f"differ from the full batch")
+                err = max(err, check_window(kernel, args, k, f"{bucket} (m={m}, n={n}) B={B}"))
             if B != nb:
                 continue
             # Accuracy against a float64 evaluation of the same window (mean
             # relative error of the state, worst of x, z, nu, y): the kernel
             # must be about as accurate as its plain version.
             a64 = [a.double() for a in args]
-            ref = ik.iterate(*a64[:9], tuple(a64[9:13]), k=CHECK_EVERY, **kw)
+            ref = ik.iterate(*a64[:9], tuple(a64[9:13]), k=CHECK_EVERY, **KW)
             del a64
             rel = {}
             for name, fn in (("kernel", ik.fused_window), ("plain", ik.fused_window_plain)):
-                st = fn(*args, k=CHECK_EVERY, **kw)[0]
+                st = fn(*args, k=CHECK_EVERY, **KW)[0]
                 rel[name] = max(((a.double() - r).abs().mean() / r.abs().mean()).item()
                                 for a, r in zip(st, ref))
             del ref
             check(rel["kernel"] <= 2 * rel["plain"],
-                  f"fused_window {bucket}: error against float64 {rel['kernel']:.3g}, "
-                  f"the plain version's {rel['plain']:.3g}")
+                  f"fused_window {bucket} (m={m}, n={n}): error against float64 "
+                  f"{rel['kernel']:.3g}, the plain version's {rel['plain']:.3g}")
             t_b, t_o = window_bounds(m, n, B, CHECK_EVERY)
-            plain_ms = cuda_ms(lambda: ik.fused_window_plain(*args, k=CHECK_EVERY, **kw), 3)
-            row = dict(bucket=bucket, m=m, n=n, B=B, k=CHECK_EVERY,
-                       ms=cuda_ms(lambda: ik.fused_window(*args, k=CHECK_EVERY, **kw), 20),
+            plain_ms = cuda_ms(lambda: ik.fused_window_plain(*args, k=CHECK_EVERY, **KW), 3)
+            row = dict(bucket=bucket, m=m, n=n, B=B, k=CHECK_EVERY, plan=plan._asdict(),
+                       ms=cuda_ms(lambda: ik.fused_window(*args, k=CHECK_EVERY, **KW), 20),
                        # No single PyTorch call computes this window: the
                        # yardstick is the port's iter_kernel = "lax" route,
                        # which is the plain version.
@@ -595,8 +535,6 @@ def route_check() -> dict:
     so there the disagreement is measured and held to loose bounds: solved
     flags equal on ≥ 99 % of home-steps, duty counts within 2, aggregate
     cost within 2 %."""
-    import numpy as np
-
     lax, s = reluqp_chunk(1000, 4, 6, "cuda", bucketed="auto", iter_kernel="lax")
     kern, _ = reluqp_chunk(1000, 4, 6, "cuda", bucketed="auto", iter_kernel="pallas")
     flip_aware_match(lax, kern, s)
@@ -608,21 +546,66 @@ def route_check() -> dict:
     t1 = time.perf_counter()
     lax, _ = reluqp_chunk(1000, 24, 6, "cuda", bucketed="auto", iter_kernel="lax")
     t2 = time.perf_counter()
-    flags = float(np.mean(kern["correct_solve"] != lax["correct_solve"]))
-    counts = max(float(np.max(np.abs(kern[k] - lax[k]) * s))
-                 for k in ("hvac_cool_on", "hvac_heat_on", "wh_heat_on"))
-    cost = float(np.max(np.abs(kern["agg_cost"] - lax["agg_cost"]) / np.abs(lax["agg_cost"])))
     stats = dict(homes=1000, steps=6, horizon_4h_match=h4, horizon=24,
                  kernel_route_s=t1 - t0, lax_route_s=t2 - t1,
                  solve_rate_kernel=float(kern["correct_solve"].mean()),
                  solve_rate_lax=float(lax["correct_solve"].mean()),
-                 solved_flag_disagreement=flags, max_duty_count_difference=counts,
-                 max_agg_cost_rel_difference=cost,
                  iterations_kernel=kern["admm_iters"].tolist(),
-                 iterations_lax=lax["admm_iters"].tolist())
+                 iterations_lax=lax["admm_iters"].tolist(), **route_noise(kern, lax, s))
     log("kernel route vs lax route: flip-aware match at H = 4; " + json.dumps(stats))
-    check(flags <= 0.01 and counts <= 2 + 1e-3 and cost <= 0.02,
-          f"kernel and lax routes disagree beyond the noise bounds: {stats}")
+    check(within_noise(stats), f"kernel and lax routes disagree beyond the noise bounds: "
+                               f"{stats}")
+    return stats
+
+
+def route_noise(kern: dict, lax: dict, s: float) -> dict:
+    """How far two ReLU-QP runs of the same homes disagree: the share of
+    home-steps whose solved flag differs, the largest duty-count
+    difference and the largest relative aggregate-cost difference."""
+    import numpy as np
+
+    return dict(
+        solved_flag_disagreement=float(np.mean(kern["correct_solve"] != lax["correct_solve"])),
+        max_duty_count_difference=max(float(np.max(np.abs(kern[k] - lax[k]) * s))
+                                      for k in ("hvac_cool_on", "hvac_heat_on", "wh_heat_on")),
+        max_agg_cost_rel_difference=float(np.max(np.abs(kern["agg_cost"] - lax["agg_cost"])
+                                                 / np.abs(lax["agg_cost"]))))
+
+
+def within_noise(d: dict) -> bool:
+    """route_check's bounds at H = 24: solved flags equal on ≥ 99 % of
+    home-steps, duty counts within 2, aggregate cost within 2 %."""
+    return (d["solved_flag_disagreement"] <= 0.01 and d["max_duty_count_difference"] <= 2 + 1e-3
+            and d["max_agg_cost_rel_difference"] <= 0.02)
+
+
+def h48_route_check() -> dict:
+    """A 1,000-home × 2-step ReLU-QP run at a 48 h horizon through the
+    fused window kernel (the two largest buckets on a 2-block cluster),
+    its launch counts reset just before it and read just after, held
+    against the same run through the lax route within route_check's
+    H = 24 noise bounds."""
+    import numpy as np
+
+    reset_launches()
+    t0 = time.perf_counter()
+    kern, s = reluqp_chunk(1000, 48, 2, "cuda", bucketed="auto", iter_kernel="pallas")
+    t1 = time.perf_counter()
+    launches = launch_counts()
+    lax, _ = reluqp_chunk(1000, 48, 2, "cuda", bucketed="auto", iter_kernel="lax")
+    t2 = time.perf_counter()
+    check(launches[WINDOW] > 0, f"the H = 48 ReLU-QP run did not launch {WINDOW}: {launches}")
+    for key in ("agg_cost", "agg_load", "cost", "temp_in", "temp_wh", "e_batt"):
+        check(bool(np.all(np.isfinite(kern[key]))), f"H = 48: non-finite {key}")
+    stats = dict(homes=1000, steps=2, horizon=48, launches=launches,
+                 kernel_route_s=t1 - t0, lax_route_s=t2 - t1,
+                 solve_rate_kernel=float(kern["correct_solve"].mean()),
+                 solve_rate_lax=float(lax["correct_solve"].mean()),
+                 iterations_kernel=kern["admm_iters"].tolist(),
+                 iterations_lax=lax["admm_iters"].tolist(), **route_noise(kern, lax, s))
+    log("H = 48 kernel route vs lax route: " + json.dumps(stats))
+    check(within_noise(stats), f"H = 48: kernel and lax routes disagree beyond the noise "
+                               f"bounds: {stats}")
     return stats
 
 
@@ -666,6 +649,14 @@ def main() -> int:
         log(f"main-path bucket shapes (name, m, bw, B): {shapes}")
         kern = kernel_phase(shapes)
         win = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"]) for b in buckets])
+        # H = 48: every bucket runs, the two largest on a 2-block cluster.
+        agg48 = Aggregator(community_config(N_HOMES, 48, "2015-01-01 01", bucketed="auto"),
+                           outputs_dir=d, device="cuda")
+        agg48.get_homes()
+        agg48._build_engine()
+        win48 = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
+                              for b in agg48.engine.bucket_info()], sizes=(1001,))
+        del agg48
         highs_check("ipm")
         highs_check("reluqp")
         cpu_vs_cuda_check()
@@ -673,6 +664,7 @@ def main() -> int:
         stats = main_path(d)
         rstats = reluqp_main_path(d)
         routes = route_check()
+        routes48 = h48_route_check()
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -707,8 +699,9 @@ def main() -> int:
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kern, "window": win, "main_path": stats,
-                   "main_path_reluqp": rstats, "routes": routes}, f, indent=1)
+        json.dump({"card": card, "kernels": kern, "window": win, "window_h48": win48,
+                   "main_path": stats, "main_path_reluqp": rstats, "routes": routes,
+                   "routes_h48": routes48}, f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,13 @@ a port of ``pallas_iter.reference_window``, which is also the
 ``iter_kernel = "lax"`` route of ``ops/reluqp.py``.  ``LAUNCHES`` counts kernel
 launches.  The TPU kernel's tiling arguments (``lane_block``,
 ``b_chunk``) and its pad-to-128 homes have no counterpart: the kernel
-runs one block per home.
+runs one block per home, or a cluster of blocks for a home too big for
+one SM, as :func:`window_plan` decides from (m, n) alone.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +34,84 @@ LAUNCHES = {"fused_window": 0}
 
 _ARG_NAMES = ("A", "Sinv", "Dinv", "w", "qs", "bs", "ls", "us", "rho", "x", "z",
               "nu", "y", "e_eq", "e_box", "cd", "p_diag")
+
+
+# The kernel's instantiations (csrc/iter.cu WINDOW_KERNELS, same order):
+# (threads, rows of Â and S⁻¹ per warp, column groups of 32 of Â, column
+# groups of S⁻¹, cluster size, Â held in registers, blocks per SM).  The
+# first four hold Â in registers (the H = 4 buckets, then the H = 24 base,
+# pv_only and m = 77 buckets); then Â in shared memory for homes up to
+# m = 112, n = 320 (the H = 48 pv_only and base buckets), and split over a
+# cluster of two blocks for homes up to m = 160, n = 448 (the H = 48
+# pv_battery and battery_only buckets).
+KERNELS = (
+    (256, 4, 2, 1, 1, True, 4),
+    (256, 7, 4, 2, 1, True, 4),
+    (256, 7, 5, 2, 1, True, 4),
+    (256, 10, 7, 3, 1, True, 2),
+    (512, 7, 10, 4, 1, False, 1),
+    (256, 10, 14, 5, 2, False, 1),
+)
+MAX_SMEM = 232_448  # dynamic shared memory of one block on sm_90 (227 KB)
+
+
+class WindowPlan(NamedTuple):
+    """How one window runs at a home shape: ``threads`` per block,
+    ``rows`` of Â and S⁻¹ per warp, ``cols`` / ``scols`` column groups of
+    32 of Â / S⁻¹, ``cluster`` blocks per home, Â held in registers
+    (``regs``), ``blocks_per_sm`` (the kernel's occupancy bound) and
+    ``smem`` dynamic shared-memory bytes per block."""
+
+    threads: int
+    rows: int
+    cols: int
+    scols: int
+    cluster: int
+    regs: bool
+    blocks_per_sm: int
+    smem: int
+
+
+def window_smem(threads: int, rows: int, cols: int, scols: int, regs: bool,
+                m: int, n: int) -> int:
+    """Dynamic shared-memory bytes of one block (csrc/iter.cu smem_bytes):
+    the block's rows of S⁻¹ (and of Â, zero-padded to 32·cols columns,
+    unless in registers), the warps' column partials, ten zero-padded
+    n-vectors, t, b̂, ν and the maxima."""
+    warps = threads // 32
+    slab = min(warps * rows, m)
+    npc = 32 * cols
+    return 4 * (slab * m + (0 if regs else slab * npc) + warps * npc + 10 * npc
+                + 32 * scols + 2 * m + 5 * warps + 5)
+
+
+def window_plans(m: int, n: int) -> list[WindowPlan]:
+    """Every instantiation of :data:`KERNELS` that covers a home of ``m``
+    equality rows and ``n`` variables within one block's shared memory,
+    in the table's order of preference."""
+    plans = []
+    for threads, rows, cols, scols, cluster, regs, per_sm in KERNELS:
+        if threads // 32 * rows * cluster >= m and 32 * cols >= n and 32 * scols >= m:
+            smem = window_smem(threads, rows, cols, scols, regs, m, n)
+            if smem <= MAX_SMEM:
+                plans.append(WindowPlan(threads, rows, cols, scols, cluster, regs, per_sm,
+                                        smem))
+    return plans
+
+
+def window_plan(m: int, n: int) -> WindowPlan:
+    """How the kernel runs a home of ``m`` equality rows and ``n``
+    variables: the first of :func:`window_plans` (Â in registers where the
+    tile fits, measured the faster on the H100; a cluster only where no
+    single block can hold the home).  Raises ``ValueError`` for a home no
+    instantiation can run.  Depends on the shape only, never on the
+    batch, so any slice of homes runs the same arithmetic."""
+    plans = window_plans(m, n)
+    if plans:
+        return plans[0]
+    raise ValueError(f"fused_window: no kernel for a home of m={m}, n={n}: the "
+                     f"window runs homes up to m = 160 and n = 448 whose operators "
+                     f"fit a cluster of two blocks of {MAX_SMEM} bytes")
 
 
 def reset_launches() -> None:
@@ -123,10 +204,18 @@ def fused_window(A, Sinv, Dinv, w, qs, bs, ls, us, rho, x, z, nu, y,
         return fused_window_plain(*args, k=k, sigma=sigma, alpha=alpha)
     if A.device.type != "cuda":
         raise ValueError(f"fused_window: no kernel for device {A.device}")
+    return _launch(args, window_plan(m, n), k=k, sigma=sigma, alpha=alpha)
+
+
+def _launch(args, plan: WindowPlan, *, k: int, sigma: float, alpha: float):
+    """Launch the kernel on ``args`` (checked CUDA tensors) with ``plan``."""
+    A, x, z, nu, y, rho = args[0], args[9], args[10], args[11], args[12], args[8]
+    B, m, n = A.shape
     outs = (torch.empty_like(x), torch.empty_like(z), torch.empty_like(nu),
             torch.empty_like(y), *(torch.empty_like(rho) for _ in range(4)))
     if B > 0:
         launch(LAUNCHES, "fused_window", lib().fused_window, A.device,
                *(ptr(a) for a in args), *(ptr(o) for o in outs),
-               B, m, n, int(k), float(sigma), float(alpha))
+               B, m, n, int(k), float(sigma), float(alpha),
+               *(int(v) for v in plan))
     return outs[:4], outs[4:]

@@ -42,12 +42,16 @@ def test_kernels_match_plain_versions(card, bw):
                            "factor_refined_solve_t": 2}
 
 
-@pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64)])
+@pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64), (52, 148, 300),
+                                   (100, 292, 40), (149, 437, 37)])
 def test_fused_window_matches_plain_version(card, m, n, B):
     """The fused ReLU-QP window against its plain version on a consistent
     fixture (S⁻¹ the inverse of Â D⁻¹ Âᵀ): rtol 1e-3 / atol 1e-4, the sums
     being taken in another order; any slice of homes reproduces the full
-    batch bit for bit."""
+    batch bit for bit.  The shapes cover Â held in registers (m = 52 and
+    77, the H = 24 buckets), in shared memory (the H = 48 pv_only bucket)
+    and split over a cluster of two blocks (the H = 48 pv_battery
+    bucket)."""
     from dragg_tpu_torch.ops import iter_kernels as ik
 
     g = torch.Generator(device=card).manual_seed(m)
@@ -74,6 +78,7 @@ def test_fused_window_matches_plain_version(card, m, n, B):
         ref = ik.fused_window_plain(*args, k=k, sigma=1e-6, alpha=1.6)
         for a, b in zip(out[0] + out[1], ref[0] + ref[1]):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+            assert torch.isfinite(a).all()
         part = ik.fused_window(*(a[3:17].contiguous() for a in args), k=k,
                                sigma=1e-6, alpha=1.6)
         for a, b in zip(part[0] + part[1], out[0] + out[1]):
