@@ -9,11 +9,16 @@ Phases, each of which ends the run with a non-zero exit code on failure:
 2. build: compiles every kernel source in dragg_tpu_torch/csrc/ with nvcc
    (one nvcc per source, started together);
 3. kernels: holds each band kernel against its plain PyTorch version on
-   the card at every bucket shape of the main path (H = 24), plus
-   B = 10,000 and a ragged B = 1,001, refine 0 and 1, fused against split;
-   times kernel, plain version and the dense library yardstick
-   (torch.linalg.cholesky_ex / torch.cholesky_solve) with CUDA events;
-   then the fused ReLU-QP window against its plain version at the same
+   the card bit for bit (torch.equal) at every bucket shape of the main
+   path (H = 24) and of a 48 h horizon, at the bucket's B, 10,000, a
+   ragged 1,001 and 32 (one block of the largest plan), refine 0 and 1,
+   the fused route equal to the split; times kernel (``ms``: one call
+   with the host's launch time, as every kernel of the line is timed;
+   ``device_ms``: the device's time per call, launches queued back to
+   back), plain version and the dense library yardstick
+   (torch.linalg.cholesky_ex / torch.cholesky_solve) with CUDA events at
+   the bucket's B, and the kernels alone at 32 homes (the measured chain
+   floor); then the fused ReLU-QP window against its plain version at the
    bucket shapes and batch sizes, k = 25 and k = 1, and a slice of homes
    against the full batch bit for bit; at the main path's shapes, its
    error against a float64 evaluation at most twice the plain version's;
@@ -53,8 +58,6 @@ import sys
 import tempfile
 import time
 
-H100_BYTES_PER_S = 3.35e12     # HBM3 (H100 SXM data sheet)
-H100_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 N_HOMES = 10_000
 BAND_SOURCE = "dragg_tpu_torch/csrc/band.cu"
 REPLACES = {
@@ -65,7 +68,7 @@ REPLACES = {
 WINDOW = "fused_window"
 WINDOW_SOURCE = "dragg_tpu_torch/csrc/iter.cu"
 WINDOW_REPLACES = "dragg_tpu/ops/pallas_iter.py:180"
-L_TOL, X_TOL = 1e-5, 1e-4   # pallas_band's self-test bounds (pallas_band.py:270-276)
+MAIN_HORIZON = 24
 # The fused window is held against its plain version at rtol 1e-3 / atol
 # 1e-4 (dragg_tpu_torch/bench_window.check_window): the float32 sums run in
 # another order (tests/test_pallas_iter.py holds the Pallas kernel so).
@@ -94,19 +97,6 @@ def community_config(n_homes: int, horizon: int, end: str, **tpu):
 
 
 # ------------------------------------------------------------ kernels
-def random_band(m: int, bw: int, B: int, seed: int):
-    """A diagonally dominant band SPD system: (m, bw+1, B) S and (m, B) r."""
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    S = torch.zeros((B, m, bw + 1), device="cuda")
-    S[:, :, 0] = 10.0 + torch.rand((B, m), device="cuda", generator=g)
-    for k in range(1, bw + 1):
-        S[:, k:, k] = 0.5 * torch.randn((B, m - k), device="cuda", generator=g)
-    r = torch.randn((m, B), device="cuda", generator=g)
-    return S.permute(1, 2, 0).contiguous(), r
-
-
 def dense_from_band(St):
     """(m, bw+1, B) lower band → dense symmetric (B, m, m)."""
     import torch
@@ -121,59 +111,66 @@ def dense_from_band(St):
     return D
 
 
-def bounds(m: int, bw: int, B: int) -> dict:
-    """Least time (ms) per kernel at one shape: the larger of its bytes over
-    the memory rate (each input read once, each output written once) and
-    its float32 operations over the card's rate."""
-    band, vec = m * (bw + 1) * B * 4, m * B * 4
-    chol_ops = (bw * bw + 2 * bw + 2) * m * B
-    solve_ops = 2 * (2 * bw + 1) * m * B
-    refine_ops = (4 * bw + 2 + 1) * m * B + solve_ops
-    work = {
-        "banded_cholesky_t": (2 * band, chol_ops),
-        "refined_banded_solve_t": (2 * band + 2 * vec, solve_ops + refine_ops),
-        "factor_refined_solve_t": (2 * band + 2 * vec, chol_ops + solve_ops),
-    }
-    out = {}
-    for name, (nbytes, ops) in work.items():
-        t_b, t_o = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOP_PER_S
-        out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
-    return out
+def exact(got, want, what: str) -> float:
+    """Bit-for-bit equality of a kernel's result with its reference;
+    returns the largest absolute difference (0.0)."""
+    import torch
+
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    check(torch.equal(got, want), f"{what}: differs from its reference, max |difference| {err}")
+    return err
 
 
 def kernel_phase(shapes) -> dict:
-    """Parity of every kernel against its plain version at every shape, and
-    timings at the main path's (bucket) shapes.  ``shapes`` is a list of
-    (bucket, m, bw, B_bucket)."""
+    """Parity of every band kernel against its plain version, bit for bit,
+    at every shape and batch size, timings at the bucket's B and at one
+    block.  ``shapes`` is a list of (horizon, bucket, m, bw, B_bucket)."""
     import torch
 
+    from dragg_tpu_torch.bench_band import band_bounds, band_fixture, chain_floor_cycles
     from dragg_tpu_torch.bench_window import cuda_ms
     from dragg_tpu_torch.ops import band_kernels as bk
 
     err = {k: 0.0 for k in REPLACES}
-    per_shape = []
-    for si, (bucket, m, bw, nb) in enumerate(shapes):
-        for B in dict.fromkeys((nb, N_HOMES, 1001)):
-            St, r = random_band(m, bw, B, seed=100 * si + B % 97)
+    per_shape, one_block = [], []
+    hb = bk.BLOCK_HOMES
+    for si, (h, bucket, m, bw, nb) in enumerate(shapes):
+        for B in dict.fromkeys((nb, N_HOMES, 1001, hb)):
+            what = f"H = {h} {bucket} (m={m}, bw={bw}) B={B}"
+            St, r = band_fixture(m, bw, B, seed=100 * si + B % 97)
             L = bk.banded_cholesky_t(St, bw)
             Lp = bk.cholesky_t_plain(St, bw)
             torch.cuda.synchronize()
-            e_l = (L - Lp).abs().max().item()
-            check(e_l <= L_TOL, f"cholesky {bucket} B={B}: |L - plain| = {e_l}")
-            err["banded_cholesky_t"] = max(err["banded_cholesky_t"], e_l)
+            err["banded_cholesky_t"] = max(err["banded_cholesky_t"],
+                                           exact(L, Lp, f"banded_cholesky_t {what}"))
             for refine in (0, 1):
                 x = bk.refined_banded_solve_t(L, St, r, bw, refine)
                 xp = bk.refined_solve_t_plain(Lp, St, r, bw, refine)
                 L2, x2 = bk.factor_refined_solve_t(St, r, bw, refine)
                 torch.cuda.synchronize()
-                e_x = (x - xp).abs().max().item()
-                check(e_x <= X_TOL, f"solve {bucket} B={B} refine={refine}: {e_x}")
-                e_f = max((L2 - L).abs().max().item(), (x2 - x).abs().max().item())
-                check(e_f <= 1e-6, f"fused vs split {bucket} B={B} refine={refine}: {e_f}")
-                err["refined_banded_solve_t"] = max(err["refined_banded_solve_t"], e_x)
+                err["refined_banded_solve_t"] = max(
+                    err["refined_banded_solve_t"],
+                    exact(x, xp, f"refined_banded_solve_t {what} refine={refine}"))
                 err["factor_refined_solve_t"] = max(
-                    err["factor_refined_solve_t"], e_f,
-                    (L2 - Lp).abs().max().item(), (x2 - xp).abs().max().item())
+                    err["factor_refined_solve_t"],
+                    exact(L2, L, f"factor_refined_solve_t L, fused vs split, {what}"),
+                    exact(x2, x, f"factor_refined_solve_t x, fused vs split, {what} "
+                                 f"refine={refine}"))
+            timed = {
+                "banded_cholesky_t": lambda: bk.banded_cholesky_t(St, bw),
+                "refined_banded_solve_t": lambda: bk.refined_banded_solve_t(L, St, r, bw, 1),
+                "factor_refined_solve_t": lambda: bk.factor_refined_solve_t(St, r, bw, 0),
+            }
+            if B == hb:
+                # One wave of one or two blocks: the kernels' time is the
+                # chain of one home's rows, the measured chain floor.
+                row = dict(horizon=h, bucket=bucket, m=m, bw=bw, B=B, kernels={
+                    name: dict(ms=cuda_ms(fn, 20), device_ms=cuda_ms(fn, 20, queued=True))
+                    for name, fn in timed.items()},
+                    chain_floor_cycles={"banded_cholesky_t": chain_floor_cycles("cholesky", bw),
+                                        "refined_banded_solve_t": chain_floor_cycles("solve", bw)})
+                one_block.append(row)
+                log(f"kernels at one block, {what}: " + json.dumps(row["kernels"]))
             if B != nb:
                 continue
             # Timings at the main path's shape: the IPM's calls are the
@@ -184,26 +181,28 @@ def kernel_phase(shapes) -> dict:
             rd = r.T.contiguous()[..., None]
             lib_chol = cuda_ms(lambda: torch.linalg.cholesky_ex(D), 10)
             lib_solve = cuda_ms(lambda: torch.cholesky_solve(rd, Ld), 10)
-            row = {"bucket": bucket, "m": m, "bw": bw, "B": B, "kernels": {}}
-            timed = {
-                "banded_cholesky_t": (lambda: bk.banded_cholesky_t(St, bw),
-                                      lambda: bk.cholesky_t_plain(St, bw), lib_chol),
-                "refined_banded_solve_t": (
-                    lambda: bk.refined_banded_solve_t(L, St, r, bw, 1),
-                    lambda: bk.refined_solve_t_plain(L, St, r, bw, 1), lib_solve),
-                "factor_refined_solve_t": (
-                    lambda: bk.factor_refined_solve_t(St, r, bw, 0),
-                    lambda: bk.factor_solve_t_plain(St, r, bw, 0),
-                    lib_chol + lib_solve),
+            plain = {
+                "banded_cholesky_t": (lambda: bk.cholesky_t_plain(St, bw), lib_chol),
+                "refined_banded_solve_t": (lambda: bk.refined_solve_t_plain(L, St, r, bw, 1),
+                                           lib_solve),
+                "factor_refined_solve_t": (lambda: bk.factor_solve_t_plain(St, r, bw, 0),
+                                           lib_chol + lib_solve),
             }
-            for name, (kern, plain, lib) in timed.items():
-                bound_ms, bound_by = bounds(m, bw, B)[name]
+            row = dict(horizon=h, bucket=bucket, m=m, bw=bw, B=B,
+                       plans={k: bk.band_plan(m, bw, k, B, bk._sms(St.device))._asdict()
+                              for k in bk.KERNEL_NAMES},
+                       kernels={})
+            for name, kern in timed.items():
+                plain_fn, lib = plain[name]
+                bound_ms, bound_by = band_bounds(m, bw, B)[name]
                 row["kernels"][name] = dict(
-                    ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 3),
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
+                    ms=cuda_ms(kern, 20), device_ms=cuda_ms(kern, 20, queued=True),
+                    plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=lib)
+            del D, Ld
             per_shape.append(row)
-            log(f"kernels at {bucket} (m={m}, bw={bw}, B={B}): " + json.dumps(row["kernels"]))
-    return {"max_abs_err": err, "per_shape": per_shape}
+            log(f"kernels at {what}: " + json.dumps(row["kernels"]))
+    return {"max_abs_err": err, "per_shape": per_shape, "one_block": one_block}
 
 
 def window_phase(shapes, sizes=(N_HOMES, 1001)) -> dict:
@@ -640,23 +639,23 @@ def main() -> int:
     from dragg_tpu_torch.aggregator import Aggregator
 
     with tempfile.TemporaryDirectory() as d:
-        agg = Aggregator(community_config(N_HOMES, 24, "2015-01-01 01", bucketed="auto"),
-                         outputs_dir=d, device="cuda")
-        agg.get_homes()
-        agg._build_engine()
-        buckets = agg.engine.bucket_info()
-        shapes = [(b["name"], b["m_eq"], b["band_bw"], b["n_real"]) for b in buckets]
-        log(f"main-path bucket shapes (name, m, bw, B): {shapes}")
+        buckets = {}
+        for h in (MAIN_HORIZON, 48):
+            agg = Aggregator(community_config(N_HOMES, h, "2015-01-01 01", bucketed="auto"),
+                             outputs_dir=d, device="cuda")
+            agg.get_homes()
+            agg._build_engine()
+            buckets[h] = agg.engine.bucket_info()
+            del agg
+        shapes = [(h, b["name"], b["m_eq"], b["band_bw"], b["n_real"])
+                  for h, bs in buckets.items() for b in bs]
+        log(f"bucket band shapes (horizon, name, m, bw, B): {shapes}")
         kern = kernel_phase(shapes)
-        win = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"]) for b in buckets])
+        win = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
+                            for b in buckets[MAIN_HORIZON]])
         # H = 48: every bucket runs, the two largest on a 2-block cluster.
-        agg48 = Aggregator(community_config(N_HOMES, 48, "2015-01-01 01", bucketed="auto"),
-                           outputs_dir=d, device="cuda")
-        agg48.get_homes()
-        agg48._build_engine()
         win48 = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
-                              for b in agg48.engine.bucket_info()], sizes=(1001,))
-        del agg48
+                              for b in buckets[48]], sizes=(1001,))
         highs_check("ipm")
         highs_check("reluqp")
         cpu_vs_cuda_check()
@@ -670,17 +669,26 @@ def main() -> int:
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
                 "factor_refined_solve_t": stats["launches_fused"]["factor_refined_solve_t"]}
     entries = []
+    main_rows = [r for r in kern["per_shape"] if r["horizon"] == MAIN_HORIZON]
+    floor_rows = [r for r in kern["one_block"] if r["horizon"] == MAIN_HORIZON]
     for name in REPLACES:
-        rows = [r["kernels"][name] for r in kern["per_shape"]]
+        rows = [r["kernels"][name] for r in main_rows]
         entries.append(dict(
             name=name, route="cuda", source=BAND_SOURCE, replaces=REPLACES[name],
             launches=launches[name], max_abs_err=kern["max_abs_err"][name],
-            # One call at every bucket's main-path shape, summed.
-            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+            # One call at every bucket's main-path shape, summed: ms with
+            # the host's launch time, as the window's and every earlier
+            # table's; device_ms the device's time per call (launches
+            # queued back to back).
+            ms=sum(r["ms"] for r in rows), device_ms=sum(r["device_ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=rows[0]["bound_by"],
             library_ms=sum(r["library_ms"] for r in rows),
-            shapes=[[r["bucket"], r["m"], r["bw"], r["B"]] for r in kern["per_shape"]],
+            # The same kernels over 32 homes at each distinct shape.
+            one_block_device_ms={f"m={r['m']},bw={r['bw']},B={r['B']}":
+                                 r["kernels"][name]["device_ms"] for r in floor_rows},
+            shapes=[[r["bucket"], r["m"], r["bw"], r["B"]] for r in main_rows],
         ))
     rows = win["per_shape"]
     t_bytes = sum(r["bound_bytes_ms"] for r in rows)

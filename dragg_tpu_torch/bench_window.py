@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import statistics
@@ -35,14 +34,30 @@ H100_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 W_RTOL, W_ATOL = 1e-3, 1e-4
 KW = dict(sigma=1e-6, alpha=1.6)   # the engine's admm_sigma / admm_alpha
 CHECK_EVERY = 25
+# Long enough (≈ 10 ms at the H100's clock) for the host to queue a timed
+# run of launches before the device reaches them.
+QUEUE_SLEEP_CYCLES = 20_000_000
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` calls, each between two
+    CUDA events (the host's launch time included), after one warm-up call.
+    With ``queued``, the mean over ``reps`` calls queued back to back behind
+    a device-side sleep, so that the device never waits on the host: the
+    device's own time per call."""
     import torch
 
     fn()
+    if queued:
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -125,8 +140,10 @@ def check_window(run, args, k: int, what: str) -> float:
     return err
 
 
-def bucket_shapes(horizon: int, n_homes: int = 10_000) -> list:
-    """(name, m, n, B) of each type bucket of the mixed community."""
+def bucket_shapes(horizon: int, n_homes: int = 10_000, fields=("m_eq", "n_var")) -> list:
+    """(name, *fields, B) of each type bucket of the mixed community: by
+    default (name, m, n, B); ``fields=("m_eq", "band_bw")`` gives the band
+    shapes."""
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.config import mixed_community_config
 
@@ -136,7 +153,7 @@ def bucket_shapes(horizon: int, n_homes: int = 10_000) -> list:
                          outputs_dir=d, device="cuda")
         agg.get_homes()
         agg._build_engine()
-        return [(b["name"], b["m_eq"], b["n_var"], b["n_real"])
+        return [(b["name"], *(b[f] for f in fields), b["n_real"])
                 for b in agg.engine.bucket_info()]
 
 
@@ -146,18 +163,9 @@ def parent_window(src: str):
     ``run(args, k)``."""
     import torch
 
-    from dragg_tpu_torch.ops.cuda_lib import _BUILD_DIR, NVCC_FLAGS, _nvcc, ptr
+    from dragg_tpu_torch.ops.cuda_lib import build_source, ptr
 
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"libparentwindow-{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, src],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(so).fused_window
+    fn = ctypes.CDLL(build_source(src, "libparentwindow")).fused_window
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fn.argtypes = [P] * 25 + [I, I, I, I, D, D, P]
     fn.restype = I

@@ -14,10 +14,18 @@ tensor runs the kernel's plain PyTorch version — the module-7 band path of
 ``ops/banded.py`` in the transposed layout, the same recurrences and
 operation order.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The kernels are built and bound by ``ops/cuda_lib.py`` on first use.
+The first two kernels stage a block's rows in shared memory (whole, or
+streamed through a ring of chunks) as :func:`band_plan` decides from
+(m, bw), the batch and the card's SM count; the C entry points refuse any
+plan not in :data:`BAND_KERNELS`.  Every plan gives the same bits, so the
+choice never changes a result.  The kernels are built and bound by
+``ops/cuda_lib.py`` on first use.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +36,91 @@ from dragg_tpu_torch.ops.cuda_lib import launch, lib, ptr
 # exactly where it launches its kernel, never on the CPU path.
 LAUNCHES = {"banded_cholesky_t": 0, "refined_banded_solve_t": 0,
             "factor_refined_solve_t": 0}
+
+
+# The staged kernels' instantiations (csrc/band.cu BAND_KERNELS, same
+# order): (homes per block, ring depth), depth 0 staging the whole band.
+# On the H100 one wave of blocks takes the chain's time whatever the block
+# size, and the ring's in-line copies make a wave ≈ 1.1-1.4× slower than
+# the whole band's (PERF.md), so band_plan takes the plan needing
+# the fewest waves, then the whole band, then the larger block.  8-home
+# blocks were measured too and never won.
+BAND_KERNELS = ((32, 0), (32, 4), (16, 0), (16, 4))
+BLOCK_HOMES = 32    # the largest block
+RING_ROWS = 16      # rows per ring chunk
+MAX_SMEM = 232_448  # dynamic shared memory of one block on sm_90 (227 KB)
+SM_SMEM = 233_472   # shared memory of one SM on sm_90, 1 KB of it reserved per block
+MAX_BLOCKS_PER_SM = 32
+H100_SMS = 132
+KERNEL_NAMES = ("cholesky", "solve")
+
+
+class BandPlan(NamedTuple):
+    """How a staged band kernel runs at one (m, bw): ``hb`` homes per
+    block, ring ``depth`` (0: the whole band staged at launch), ``rows``
+    per ring chunk (m for the whole band) and ``smem`` dynamic
+    shared-memory bytes per block."""
+
+    hb: int
+    depth: int
+    rows: int
+    smem: int
+
+
+def band_smem(kernel: str, m: int, bw: int, hb: int, depth: int, rows: int) -> int:
+    """Dynamic shared-memory bytes of one block (csrc/band.cu plan_smem):
+    the band rows held — all m, or the ring's depth · rows — of one array
+    (the factor's S; the solve's ring) or two (the solve's whole L and S),
+    plus the solve's r, x and y/t vectors."""
+    band_rows = m if depth == 0 else depth * rows
+    arrays = 2 if kernel == "solve" and depth == 0 else 1
+    vecs = 3 * m if kernel == "solve" else 0
+    return 4 * hb * (arrays * band_rows * (bw + 1) + vecs)
+
+
+def band_plans(m: int, bw: int, kernel: str) -> list[BandPlan]:
+    """Every instantiation of :data:`BAND_KERNELS` that runs ``kernel``
+    (``"cholesky"`` or ``"solve"``) at (m, bw) within one block's shared
+    memory, in the table's order."""
+    if kernel not in KERNEL_NAMES:
+        raise ValueError(f"band_plans: kernel {kernel!r} not in {KERNEL_NAMES}")
+    plans = []
+    for hb, depth in BAND_KERNELS:
+        rows = m if depth == 0 else min(RING_ROWS, m)
+        smem = band_smem(kernel, m, bw, hb, depth, rows)
+        if smem <= MAX_SMEM:
+            plans.append(BandPlan(hb, depth, rows, smem))
+    return plans
+
+
+def band_waves(plan: BandPlan, B: int, sms: int = H100_SMS) -> int:
+    """Waves of blocks ``plan`` takes over B homes on a card of ``sms`` SMs,
+    as many blocks sharing an SM as its shared memory allows."""
+    per_sm = min(MAX_BLOCKS_PER_SM, SM_SMEM // (plan.smem + 1024))
+    blocks = -(-B // plan.hb)
+    return -(-blocks // (sms * per_sm))
+
+
+@lru_cache(maxsize=4096)
+def band_plan(m: int, bw: int, kernel: str, B: int, sms: int = H100_SMS) -> BandPlan:
+    """The plan ``kernel`` runs at (m, bw) over B homes on a card of ``sms``
+    SMs: of :func:`band_plans`, the one needing the fewest waves of blocks
+    (:func:`band_waves`), then the whole band before the ring, then the
+    larger block.  Raises ``ValueError`` where no block can hold the
+    kernel's rows."""
+    if m < 1 or not 1 <= bw <= bd.MAX_BAND:
+        raise ValueError(f"band_plan: no kernel for m={m}, bw={bw}")
+    plans = band_plans(m, bw, kernel)
+    if not plans:
+        raise ValueError(f"band_plan: no {kernel} kernel for m={m}, bw={bw}: the solve's "
+                         f"vectors of {min(hb for hb, _ in BAND_KERNELS)} homes exceed "
+                         f"{MAX_SMEM} bytes of shared memory")
+    return min(plans, key=lambda p: (band_waves(p, B, sms), p.depth > 0, -p.hb))
+
+
+@lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -91,9 +184,15 @@ def banded_cholesky_t(St: torch.Tensor, bw: int) -> torch.Tensor:
     m, B = _check("banded_cholesky_t", bw, bands=(St,))
     if St.device.type == "cpu":
         return cholesky_t_plain(St, bw)
+    return cholesky_launch(St, bw, band_plan(m, bw, "cholesky", B, _sms(St.device)))
+
+
+def cholesky_launch(St, bw: int, plan: BandPlan) -> torch.Tensor:
+    """Launch ``band_cholesky_t`` with ``plan`` on checked CUDA tensors."""
+    m, _, B = St.shape
     L = torch.empty_like(St)
     launch(LAUNCHES, "banded_cholesky_t", lib().band_cholesky_t, St.device,
-           ptr(St), ptr(L), m, bw, B)
+           ptr(St), ptr(L), m, bw, B, *plan)
     return L
 
 
@@ -104,10 +203,16 @@ def refined_banded_solve_t(Lt, St, rt, bw: int, refine: int = 1) -> torch.Tensor
     m, B = _check("refined_banded_solve_t", bw, bands=(Lt, St), vecs=(rt,))
     if Lt.device.type == "cpu":
         return refined_solve_t_plain(Lt, St, rt, bw, refine)
-    x, y, t = (torch.empty_like(rt) for _ in range(3))
+    return solve_launch(Lt, St, rt, bw, refine, band_plan(m, bw, "solve", B, _sms(Lt.device)))
+
+
+def solve_launch(Lt, St, rt, bw: int, refine: int, plan: BandPlan) -> torch.Tensor:
+    """Launch ``band_refined_solve_t`` with ``plan`` on checked CUDA
+    tensors; x is the only array it writes."""
+    m, B = rt.shape
+    x = torch.empty_like(rt)
     launch(LAUNCHES, "refined_banded_solve_t", lib().band_refined_solve_t,
-           Lt.device, ptr(Lt), ptr(St), ptr(rt), ptr(x), ptr(y), ptr(t),
-           m, bw, B, int(refine))
+           Lt.device, ptr(Lt), ptr(St), ptr(rt), ptr(x), m, bw, B, int(refine), *plan)
     return x
 
 

@@ -27,8 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argtypes of each C entry point, the stream last.
 _SIGNATURES = {
-    "band_cholesky_t": [_P, _P, _I, _I, _I, _P],
-    "band_refined_solve_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # S, L, m, bw, B, the plan's hb, depth, rows, smem, stream
+    "band_cholesky_t": [_P, _P] + [_I] * 7 + [_P],
+    # L, S, r, x, m, bw, B, refine, the plan's hb, depth, rows, smem, stream
+    "band_refined_solve_t": [_P] * 4 + [_I] * 8 + [_P],
     "band_factor_solve_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # 17 inputs, 8 outputs, B, m, n, k, sigma, alpha, the plan's threads,
     # rows, cols, scols, cluster, regs, blocks_per_sm, smem, stream
@@ -82,6 +84,22 @@ def build_library() -> str:
     for obj in objs:
         os.remove(obj)
     return path
+
+
+def build_source(src: str, stem: str) -> str:
+    """Compile one kernel source on its own (an older ``csrc/*.cu``, to time
+    beside this checkout's) into ``_build/<stem>-<hash>.so`` with this
+    checkout's flags, once per content; returns its path."""
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = os.path.join(_BUILD_DIR, f"{stem}-{tag}.so")
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, src],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
+    return so
 
 
 def lib():

@@ -11,7 +11,11 @@ multiply-add where PyTorch rounds the product first, which moves a result
 by about one float32 ulp per recurrence step.
 """
 
+import os
+import re
 import sys
+import tempfile
+from functools import lru_cache
 
 import numpy as np
 import jax.numpy as jnp
@@ -139,3 +143,111 @@ def test_wrappers_validate_inputs():
         bk.refined_banded_solve_t(St, St, torch.zeros((5, 3)), 2)
     with pytest.raises(ValueError, match="contiguous"):
         bk.factor_refined_solve_t(St, torch.zeros((4, 5)).T, 2)
+
+
+@lru_cache(maxsize=None)
+def _bucket_ms(horizon):
+    """The distinct equality-row counts m of the mixed community's type
+    buckets at ``horizon`` (the band kernels' m)."""
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.config import mixed_community_config
+
+    with tempfile.TemporaryDirectory() as d:
+        agg = Aggregator(mixed_community_config(40, horizon, "2015-01-01 01",
+                                                bucketed="true"),
+                         outputs_dir=d, device="cpu")
+        agg.get_homes()
+        agg._build_engine()
+        return sorted({b["m_eq"] for b in agg.engine.bucket_info()})
+
+
+@pytest.mark.parametrize("bw", [1, 4, 7, 12])
+@pytest.mark.parametrize("horizon", [4, 24, 48])
+def test_band_plan_at_bucket_shapes(horizon, bw):
+    """Every bucket's m at H = 4, 24 and 48, at every bandwidth and at
+    batches from one home to 10,000, gets a plan of each staged kernel that
+    the C entry point accepts: (homes per block, ring depth) one of
+    BAND_KERNELS, rows per chunk m (whole band) or RING_ROWS, its shared
+    memory within one block's 232,448 bytes; of the plans that fit, the
+    one needing the fewest waves of blocks on the H100's 132 SMs, then the
+    whole band, then the larger block."""
+    for m in _bucket_ms(horizon):
+        for kernel in bk.KERNEL_NAMES:
+            fits = bk.band_plans(m, bw, kernel)
+            for B in (1, bk.BLOCK_HOMES, 1000, 4000, 10_000):
+                p = bk.band_plan(m, bw, kernel, B)
+                assert (p.hb, p.depth) in bk.BAND_KERNELS and p in fits
+                assert p.rows == (m if p.depth == 0 else min(bk.RING_ROWS, m))
+                assert p.smem == bk.band_smem(kernel, m, bw, p.hb, p.depth, p.rows)
+                assert p.smem <= bk.MAX_SMEM == 232_448
+                least = min(bk.band_waves(q, B) for q in fits)
+                assert bk.band_waves(p, B) == least
+                tied = [q for q in fits if bk.band_waves(q, B) == least]
+                assert p.depth == min(q.depth for q in tied)
+                assert p.hb == max(q.hb for q in tied if q.depth == p.depth)
+    if horizon == 24 and bw == 4:
+        # The main path (B = 1,000 and 4,000) stages whole bands, 32 homes
+        # a block; at 10,000 homes the solve's whole band would take 2-3
+        # waves, and it streams (m = 77) or halves the block (m = 52), as
+        # the card measured fastest.
+        for m in _bucket_ms(24):
+            for k in bk.KERNEL_NAMES:
+                assert bk.band_plan(m, 4, k, 1000)[:2] == (32, 0)
+                assert bk.band_plan(m, 4, k, 4000)[:2] == (32, 0)
+        assert bk.band_plan(77, 4, "solve", 10_000)[:2] == (32, 4)
+        assert bk.band_plan(52, 4, "solve", 10_000)[:2] == (16, 0)
+    if horizon == 48 and bw == 4:
+        # m = 149: 32 homes' whole L, S and vectors exceed a block, 16
+        # homes' fit; at 10,000 homes the ring.  m = 100: the factor's
+        # whole band at 10,000 homes, the solve's ring of 16-home blocks.
+        assert bk.band_plan(149, 4, "solve", 1000)[:2] == (16, 0)
+        assert bk.band_plan(149, 4, "solve", 10_000)[:2] == (32, 4)
+        assert bk.band_plan(149, 4, "cholesky", 1000)[:2] == (32, 0)
+        assert bk.band_plan(149, 4, "cholesky", 10_000)[:2] == (32, 4)
+        assert bk.band_plan(100, 4, "cholesky", 10_000)[:2] == (32, 0)
+        assert bk.band_plan(100, 4, "solve", 10_000)[:2] == (16, 4)
+
+
+def test_band_plan_refuses_what_it_cannot_run():
+    """No plan where even the smallest block's solve vectors exceed one
+    block's shared memory, for m < 1, a bandwidth beyond MAX_BAND or an
+    unknown kernel; the factor alone streams any m through the ring."""
+    with pytest.raises(ValueError, match="no solve kernel"):
+        bk.band_plan(3000, 12, "solve", 1000)
+    assert bk.band_plan(3000, 12, "cholesky", 1000).depth > 0
+    for m, bw in ((0, 4), (10, 0), (10, tb.MAX_BAND + 1)):
+        with pytest.raises(ValueError, match="no kernel"):
+            bk.band_plan(m, bw, "cholesky", 1000)
+    with pytest.raises(ValueError, match="kernel"):
+        bk.band_plans(10, 4, "factor")
+
+
+def test_ipm_step_ab_dry_run_on_the_cpu():
+    """bench_band.ipm_ab's loop on CPU tensors, with the plain versions in
+    the older kernels' place: both sides run the same steps in turns, the
+    band wrappers' calls are counted, and the outputs agree bit for bit."""
+    from dragg_tpu_torch.bench_band import ipm_ab
+
+    older = (lambda St, bw: bk.cholesky_t_plain(St, bw),
+             lambda L, S, r, bw, refine=1: bk.refined_solve_t_plain(L, S, r, bw, refine))
+    res = ipm_ab(older, pairs=1, steps=2, homes=16, device="cpu")
+    for side in ("this", "older"):
+        assert len(res[side]["s_per_step"]) == 1 and res[side]["band_calls_per_step"] > 0
+    assert res["this"]["band_calls_per_step"] == res["older"]["band_calls_per_step"]
+    assert bk.banded_cholesky_t.__name__ == "banded_cholesky_t"   # restored
+
+
+def test_band_kernel_table_matches_the_cuda_source():
+    """``BAND_KERNELS`` lists exactly the instantiations of csrc/band.cu's
+    BAND_KERNELS, in the same order (the C entry points refuse any other
+    plan), and every ring depth is the source's kRingDepth."""
+    src = os.path.join(os.path.dirname(bk.__file__), "..", "csrc", "band.cu")
+    with open(src) as f:
+        text = f.read()
+    block = text[text.index("#define BAND_KERNELS(X)"):]
+    block = block[:block.index("\n\n")]
+    rows = [tuple(int(v) for v in r.split(","))
+            for r in re.findall(r"X\(([\d, ]+)\)", block)]
+    assert rows == list(bk.BAND_KERNELS)
+    depth = int(re.search(r"constexpr int kRingDepth = (\d+);", text).group(1))
+    assert {d for _, d in bk.BAND_KERNELS} == {0, depth}

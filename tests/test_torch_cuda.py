@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions: the band kernels bit for bit (both round every multiply and add
-separately), the fused ReLU-QP window to float32 sum-order rounding.
+versions: the band kernels bit for bit (both round every multiply, add,
+divide and square root separately, in the same order), the fused ReLU-QP
+window to float32 sum-order rounding.
 Marked ``cuda``: they skip without a CUDA device; run them on the GPU with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
@@ -19,27 +20,57 @@ def card():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("batch", ["one", "below_block", "block_plus_one", "ragged"])
+@pytest.mark.parametrize("m", [29, 1, 149])
 @pytest.mark.parametrize("bw", [1, 4, 12])
-def test_kernels_match_plain_versions(card, bw):
-    g = torch.Generator(device=card).manual_seed(bw)
-    m, B = 29, 1001
-    S = torch.zeros((B, m, bw + 1), device=card)
-    S[:, :, 0] = 10.0 + torch.rand((B, m), device=card, generator=g)
-    for k in range(1, bw + 1):
-        S[:, k:, k] = 0.5 * torch.randn((B, m - k), device=card, generator=g)
-    St = S.permute(1, 2, 0).contiguous()
-    r = torch.randn((m, B), device=card, generator=g)
+def test_kernels_match_plain_versions(card, bw, m, batch):
+    """The band kernels bit for bit against their plain versions, refine
+    0, 1 and 2: the staged factor and solve at their plan and at every
+    other plan the shape admits (whole band and ring, both block sizes);
+    B = 1, fewer homes than a block, a block and one, a ragged 1,001;
+    m = 1, and m = 149, where 32 homes' whole band does not fit a block
+    for the solve at bw 4 and 12 and for the factor at bw 12.  The fused
+    route equals the split."""
+    from dragg_tpu_torch.bench_band import band_fixture
+
+    hb = bk.BLOCK_HOMES
+    B = {"one": 1, "below_block": hb - 3, "block_plus_one": hb + 1, "ragged": 1001}[batch]
+    St, r = band_fixture(m, bw, B, seed=100 * bw + m + B)
+    chol_plans, solve_plans = bk.band_plans(m, bw, "cholesky"), bk.band_plans(m, bw, "solve")
+    if m == 149:
+        assert ((32, 0) not in [p[:2] for p in solve_plans]) == (bw > 1)
+        assert ((32, 0) not in [p[:2] for p in chol_plans]) == (bw == 12)
     bk.reset_launches()
     L = bk.banded_cholesky_t(St, bw)
-    assert torch.equal(L, bk.cholesky_t_plain(St, bw))
-    for refine in (0, 1):
+    Lp = bk.cholesky_t_plain(St, bw)
+    assert torch.equal(L, Lp)
+    for plan in chol_plans:
+        assert torch.equal(bk.cholesky_launch(St, bw, plan), Lp), plan
+    for refine in (0, 1, 2):
         x = bk.refined_banded_solve_t(L, St, r, bw, refine)
-        assert torch.equal(x, bk.refined_solve_t_plain(L, St, r, bw, refine))
+        xp = bk.refined_solve_t_plain(Lp, St, r, bw, refine)
+        assert torch.equal(x, xp)
+        for plan in solve_plans:
+            assert torch.equal(bk.solve_launch(L, St, r, bw, refine, plan), xp), (plan, refine)
         L2, x2 = bk.factor_refined_solve_t(St, r, bw, refine)
         assert torch.equal(L2, L) and torch.equal(x2, x)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES == {"banded_cholesky_t": 1, "refined_banded_solve_t": 2,
-                           "factor_refined_solve_t": 2}
+    assert bk.LAUNCHES == {"banded_cholesky_t": 1 + len(chol_plans),
+                           "refined_banded_solve_t": 3 * (1 + len(solve_plans)),
+                           "factor_refined_solve_t": 3}
+
+
+def test_refused_band_plan_raises(card):
+    """A plan the C entry point does not list, or whose bytes do not match
+    the shape, is refused and never runs."""
+    from dragg_tpu_torch.bench_band import band_fixture
+
+    St, r = band_fixture(29, 4, 10, seed=0)
+    good = bk.band_plan(29, 4, "cholesky", 10)
+    for plan in (bk.BandPlan(24, 0, 29, bk.band_smem("cholesky", 29, 4, 24, 0, 29)),
+                 good._replace(smem=good.smem + 4), good._replace(depth=2, rows=5)):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            bk.cholesky_launch(St, 4, plan)
 
 
 @pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64), (52, 148, 300),
