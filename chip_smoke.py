@@ -12,20 +12,22 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    the card bit for bit (torch.equal) at every bucket shape of the main
    path (H = 24) and of a 48 h horizon, at the bucket's B, 10,000, a
    ragged 1,001 and 32 (one block of the largest plan), refine 0 and 1,
-   the fused route equal to the split; times kernel (``ms``: one call
-   with the host's launch time, as every kernel of the line is timed;
-   ``device_ms``: the device's time per call, launches queued back to
-   back), plain version and the dense library yardstick
-   (torch.linalg.cholesky_ex / torch.cholesky_solve) with CUDA events at
-   the bucket's B, and the kernels alone at 32 homes (the measured chain
-   floor); then the fused ReLU-QP window against its plain version at the
-   bucket shapes and batch sizes, k = 25 and k = 1, and a slice of homes
-   against the full batch bit for bit; at the main path's shapes, its
-   error against a float64 evaluation at most twice the plain version's;
-   times kernel and plain version,
-   which is also the iter_kernel = "lax" route (the batched-einsum chain)
-   and the yardstick; then the same at the four bucket shapes of a 48 h
-   horizon (B = bucket and 1,001), two of them on a 2-block cluster;
+   the fused kernel equal to its plain version and to the split route;
+   times kernel (``ms``: one call with the host's launch time, as every
+   kernel of the line is timed; ``device_ms``: the device's time per
+   call, launches queued back to back), plain version and the dense
+   library yardstick (torch.linalg.cholesky_ex / torch.cholesky_solve)
+   with CUDA events at the bucket's B, the fused kernel beside the split
+   pair (factor, then solve at refine 0), and the kernels alone at 32
+   homes (the measured chain floor); then the fused ReLU-QP window against
+   its plain version at the bucket shapes and batch sizes, k = 25 and
+   k = 1, and a slice of homes against the full batch bit for bit; at the
+   main path's shapes, its error against a float64 evaluation at most
+   twice the plain version's; times kernel (one call and device time) and
+   plain version, which is also the iter_kernel = "lax" route (the
+   batched-einsum chain) and the yardstick; then the same at the four
+   bucket shapes of a 48 h horizon (B = bucket and 1,001), two of them on
+   a 2-block cluster;
 4. correctness on small inputs: interior-point and ReLU-QP objectives
    within 1 % of HiGHS on a 16-home, 24 h community QP; an 8-home engine
    run on the card against the same run on the CPU, for each solver;
@@ -146,29 +148,40 @@ def kernel_phase(shapes) -> dict:
             for refine in (0, 1):
                 x = bk.refined_banded_solve_t(L, St, r, bw, refine)
                 xp = bk.refined_solve_t_plain(Lp, St, r, bw, refine)
-                L2, x2 = bk.factor_refined_solve_t(St, r, bw, refine)
+                Lf, xf = bk.factor_refined_solve_t(St, r, bw, refine)
                 torch.cuda.synchronize()
                 err["refined_banded_solve_t"] = max(
                     err["refined_banded_solve_t"],
                     exact(x, xp, f"refined_banded_solve_t {what} refine={refine}"))
+                # Its plain version, factor_solve_t_plain, is (Lp, xp).
                 err["factor_refined_solve_t"] = max(
                     err["factor_refined_solve_t"],
-                    exact(L2, L, f"factor_refined_solve_t L, fused vs split, {what}"),
-                    exact(x2, x, f"factor_refined_solve_t x, fused vs split, {what} "
+                    exact(Lf, Lp, f"factor_refined_solve_t L {what} refine={refine}"),
+                    exact(xf, xp, f"factor_refined_solve_t x {what} refine={refine}"),
+                    exact(Lf, L, f"factor_refined_solve_t L, fused vs split, {what}"),
+                    exact(xf, x, f"factor_refined_solve_t x, fused vs split, {what} "
                                  f"refine={refine}"))
             timed = {
                 "banded_cholesky_t": lambda: bk.banded_cholesky_t(St, bw),
                 "refined_banded_solve_t": lambda: bk.refined_banded_solve_t(L, St, r, bw, 1),
                 "factor_refined_solve_t": lambda: bk.factor_refined_solve_t(St, r, bw, 0),
             }
+
+            def split():
+                # The split route's two launches for the fused kernel's (L, x).
+                return bk.refined_banded_solve_t(bk.banded_cholesky_t(St, bw), St, r, bw, 0)
+
             if B == hb:
                 # One wave of one or two blocks: the kernels' time is the
                 # chain of one home's rows, the measured chain floor.
                 row = dict(horizon=h, bucket=bucket, m=m, bw=bw, B=B, kernels={
                     name: dict(ms=cuda_ms(fn, 20), device_ms=cuda_ms(fn, 20, queued=True))
                     for name, fn in timed.items()},
-                    chain_floor_cycles={"banded_cholesky_t": chain_floor_cycles("cholesky", bw),
-                                        "refined_banded_solve_t": chain_floor_cycles("solve", bw)})
+                    split_device_ms=cuda_ms(split, 20, queued=True),
+                    chain_floor_cycles={
+                        "banded_cholesky_t": chain_floor_cycles("cholesky", bw),
+                        "refined_banded_solve_t": chain_floor_cycles("solve", bw),
+                        "factor_refined_solve_t": chain_floor_cycles("factor_solve", bw, 0)})
                 one_block.append(row)
                 log(f"kernels at one block, {what}: " + json.dumps(row["kernels"]))
             if B != nb:
@@ -199,6 +212,8 @@ def kernel_phase(shapes) -> dict:
                     ms=cuda_ms(kern, 20), device_ms=cuda_ms(kern, 20, queued=True),
                     plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib)
+            row["kernels"]["factor_refined_solve_t"].update(
+                split_ms=cuda_ms(split, 20), split_device_ms=cuda_ms(split, 20, queued=True))
             del D, Ld
             per_shape.append(row)
             log(f"kernels at {what}: " + json.dumps(row["kernels"]))
@@ -244,8 +259,11 @@ def window_phase(shapes, sizes=(N_HOMES, 1001)) -> dict:
                   f"{rel['kernel']:.3g}, the plain version's {rel['plain']:.3g}")
             t_b, t_o = window_bounds(m, n, B, CHECK_EVERY)
             plain_ms = cuda_ms(lambda: ik.fused_window_plain(*args, k=CHECK_EVERY, **KW), 3)
+            def window():
+                return ik.fused_window(*args, k=CHECK_EVERY, **KW)
+
             row = dict(bucket=bucket, m=m, n=n, B=B, k=CHECK_EVERY, plan=plan._asdict(),
-                       ms=cuda_ms(lambda: ik.fused_window(*args, k=CHECK_EVERY, **KW), 20),
+                       ms=cuda_ms(window, 20), device_ms=cuda_ms(window, 20, queued=True),
                        # No single PyTorch call computes this window: the
                        # yardstick is the port's iter_kernel = "lax" route,
                        # which is the plain version.
@@ -685,6 +703,9 @@ def main() -> int:
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=rows[0]["bound_by"],
             library_ms=sum(r["library_ms"] for r in rows),
+            **({"split_ms": sum(r["split_ms"] for r in rows),
+                "split_device_ms": sum(r["split_device_ms"] for r in rows)}
+               if name == "factor_refined_solve_t" else {}),
             # The same kernels over 32 homes at each distinct shape.
             one_block_device_ms={f"m={r['m']},bw={r['bw']},B={r['B']}":
                                  r["kernels"][name]["device_ms"] for r in floor_rows},
@@ -697,7 +718,8 @@ def main() -> int:
         name=WINDOW, route="cuda", source=WINDOW_SOURCE, replaces=WINDOW_REPLACES,
         launches=rstats["launches"][WINDOW], max_abs_err=win["max_abs_err"],
         # One k = 25 window at every bucket's main-path shape, summed.
-        ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+        ms=sum(r["ms"] for r in rows), device_ms=sum(r["device_ms"] for r in rows),
+        plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=sum(r["library_ms"] for r in rows),
         library="the port's iter_kernel='lax' route, the plain version (a batched "

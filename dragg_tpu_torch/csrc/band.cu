@@ -21,15 +21,16 @@
 // kernels.  Every multiply, add, divide and square root is an explicitly
 // rounded intrinsic (__fmul_rn, __fsub_rn, ...) and the build passes
 // -fmad=false, so nothing is contracted into an FMA and the kernels match
-// the plain versions bit for bit.
+// the plain versions, and each other, bit for bit.
 //
 // What bounds them.  By bytes (bench_band.band_bounds): the factor reads
 // S and writes L, 2·m·(bw+1)·B·4 bytes; the refined solve reads L, S and r
-// and writes x, (2·m·(bw+1) + 2·m)·B·4 — at m = 77, bw = 4, B = 1,000:
-// 3.1 MB and 3.7 MB, about 1 µs at 3.35 TB/s.  Far above that sits the chain
-// floor: the dependent instructions of one row times m, at the SM clock
-// (1.98 GHz at most).  Counted from the code with 4 cycles per dependent
-// add or multiply, ~36 per divide sequence and ~30 per square root (not
+// and writes x, (2·m·(bw+1) + 2·m)·B·4; the fused kernel reads S and r and
+// writes L and x, the same — at m = 77, bw = 4, B = 1,000: 3.1 MB and
+// 3.7 MB, about 1 µs at 3.35 TB/s.  Far above that sits the chain floor:
+// the dependent instructions of one row times m, at the SM clock (1.98 GHz
+// at most).  Counted from the code with 4 cycles per dependent add or
+// multiply, ~36 per divide sequence and ~30 per square root (not
 // measured), at bw = 4:
 //   factor row: the four divides, each after the products and
 //     subtractions that feed it (36 + 44 + 48 + 52), then the diagonal's
@@ -39,27 +40,34 @@
 //     subtractions, one divide: ≈ 56 cycles;
 //   residual row (no recurrence, issued in order): ≈ 40 cycles;
 //   refined solve at refine 1: 4 · 56 + 40 ≈ 264 cycles a row; m = 77 →
-//     ≈ 10.3 µs.
+//     ≈ 10.3 µs;
+//   fused factor and solve at refine 0: the factor's 238 cycles a row,
+//     with the forward row's 56 beside them in another warp, then one
+//     backward sweep's 56: ≈ 294 cycles a row (350 with the forward on
+//     the factor's chain); m = 77 → ≈ 11.4 µs.
 // Measured on an H100 80GB HBM3 card (700 W) over 32 homes, m = 52..149
 // (bench_band, chip_smoke.py): 0.21-0.22 µs a factor row and 0.37-0.38 µs
 // a refine-1 solve row with the whole band staged, 0.51-0.53 µs through
 // the ring (≈ 415-435, 735-750 and 1,010-1,050 cycles at 1.98 GHz), plus
-// ≈ 3 µs a launch.  The chain runs about twice the count above (each
-// divide and square root, with its range check and branch, costs more
-// than assumed, and the warp issues the row's moves and predicates in
-// order with it), and the kernel's time at the main path's batches is
-// that chain: 32 homes a block leave most SMs idle at B = 1,000 and still
-// fit one wave at 4,000.
-// The first design ran 75 / 124 µs of device time per call at m = 77,
-// B = 1,000: every row's loads came from device memory, behind the
-// previous row's stores (x aliases t, y is re-read), so each row paid a
-// device-memory round trip.
+// ≈ 3 µs a launch; the fused kernel at refine 0, 0.335-0.346 µs a row
+// (≈ 665-685 cycles), where a factor row and a backward row take ≈ 0.30
+// (the split route's refine-0 solve runs ≈ 0.08 µs a sweep row).  The
+// chain runs about twice the count above (each divide and square root,
+// with its range check and branch, costs more than assumed, and the warp
+// issues the row's moves and predicates in order with it), and the
+// kernel's time at the main path's batches is that chain: 32 homes a
+// block leave most SMs idle at B = 1,000 and still fit one wave at 4,000.
+// The first design (one thread per home, 64-thread blocks, no shared
+// memory) ran 75 / 124 µs of device time per call at m = 77, B = 1,000:
+// every row's loads came from device memory, behind the previous row's
+// stores (x aliases t, y is re-read), so each row paid a device-memory
+// round trip.
 //
 // What the design does about it: a block of hb homes stages its rows in
 // shared memory, layout [row][k][home] (home fastest: no bank conflicts,
 // and the copy from the homes-last device layout is a coalesced stream),
 // with cp.async.  Each thread copies only its own home's column, so it
-// waits on its own copies (cp.async.wait_group) and no barrier is needed.
+// waits on its own copies (cp.async.wait_group) and needs no barrier.
 // Where the home's band fits, it is staged whole at launch (depth 0);
 // otherwise it streams through a ring of kRingDepth chunks of R rows,
 // issued kRingDepth - 2 chunks ahead of the chunk the chain is on.  The
@@ -71,21 +79,33 @@
 // refined solve, L is staged once and read by all 2 + 2·refine sweeps
 // (whole band) or streamed once per sweep (ring), and r, x and y/t live in
 // shared memory for the whole launch: only x goes back to device memory,
-// once.  Which (hb, depth, R) runs is a host-side plan from (m, bw), the
-// batch and the SM count (ops/band_kernels.band_plan: the fewest waves of
-// blocks, then the whole band, then the larger block — every plan gives
-// the same bits); the entry points validate it against BAND_KERNELS and
-// refuse any other.
-//
-// factor_solve_kernel keeps the first design (one thread per home reading
-// and writing device memory, 64-thread blocks); it runs the same row
-// arithmetic, so it equals the split route bit for bit.
+// once.  The fused kernel keeps L on the chip and takes the forward
+// substitution off the factor's chain.  With the whole band a block is two
+// warps: lane l of the first stages S and factors home l, writing L row i
+// over S row i in shared memory once S row i is in registers (refining, L
+// goes to an array of its own beside S), and publishes the rows done in a
+// progress word (a release store; the reader's loads are acquires); lane
+// l of the second stages r and runs the forward substitution a row
+// behind, on another scheduler, storing L to device memory on the way,
+// then the backward sweep and the refinements, with one vector for r, y
+// and x at refine 0.  (In one thread the forward rows did not overlap the
+// factor's: the pass took the time of both chains on the card, likely as
+// each divide and square root ends in a branch to its slow path, which
+// splits the loop into blocks scheduled apart.)  Through the ring,
+// one thread runs the passes in turn, and L comes back from device
+// memory, where the thread wrote it earlier in the launch: the ring holds
+// those copies back until the factor pass has ended and a fence orders
+// the stores before them (Ring::release).  Which (hb, depth, R) runs is a
+// host-side plan from (m, bw), refine, the batch and the SM count
+// (ops/band_kernels.band_plan: the fewest waves of blocks, then the whole
+// band, then the larger block — every plan gives the same bits); the
+// entry points validate it against BAND_KERNELS and BAND_SMEM and refuse
+// any other.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;        // factor_solve_kernel's block
 constexpr int kRingDepth = 4;       // ring slots; chunks issued kRingDepth - 2 ahead
 constexpr int kMaxHomes = 32;       // largest block of the staged kernels
 constexpr int kMaxSmem = 232448;    // dynamic shared memory of one block on sm_90
@@ -112,22 +132,42 @@ bool plan_accepted(int hb, int depth) {
   return false;
 }
 
-// Shared-memory bytes of a plan (ops/band_kernels.band_smem): the band
-// rows held (all m, or the ring's depth · R) of one array (the factor; the
-// solve's ring) or two (the solve's whole L and S), plus the solve's r, x
-// and y/t vectors.
-int plan_smem(bool solve, int m, int bw, int hb, int depth, int rows) {
-  const long band_rows = depth == 0 ? m : static_cast<long>(depth) * rows;
-  const long arrays = (solve && depth == 0) ? 2 : 1;
-  const long words = arrays * band_rows * (bw + 1) + (solve ? 3L * m : 0L);
-  const long bytes = 4L * hb * words;
+// The staged kernels, in the order of ops/band_kernels.KERNEL_NAMES.
+enum Kernel { kCholesky = 0, kSolve = 1, kFactorSolve = 2 };
+
+// What a block holds in shared memory (ops/band_kernels.SMEM_TERMS), per
+// (kernel, refine > 0): band arrays staged whole, vectors of m floats and
+// single words, each per home.  The factor: S.  The solve: L and S (S
+// filled only when refining); r, x and y/t.  The fused kernel: S, turning
+// into L row by row, one vector (r, then y, then x) and the factor's
+// progress word; refining, L and S apart, r, x and y/t, and the word.  A
+// ring holds depth · R rows of one array in place of the whole arrays.
+#define BAND_SMEM(X)  \
+  X(0, 0, 1, 0, 0)    \
+  X(0, 1, 1, 0, 0)    \
+  X(1, 0, 2, 3, 0)    \
+  X(1, 1, 2, 3, 0)    \
+  X(2, 0, 1, 1, 1)    \
+  X(2, 1, 2, 3, 1)
+
+// Shared-memory bytes of a plan (ops/band_kernels.band_smem), or -1
+// beyond one block's.
+int plan_smem(int kernel, int m, int bw, int hb, int depth, int rows, int refine) {
+  long arrays = -1, vecs = 0, words = 0;
+#define DRAGG_BAND_SMEM(K, F, A, V, E) \
+  if (kernel == K && (refine > 0) == F) arrays = A, vecs = V, words = E;
+  BAND_SMEM(DRAGG_BAND_SMEM)
+#undef DRAGG_BAND_SMEM
+  if (arrays < 0) return -1;
+  const long band_rows = depth == 0 ? arrays * m : static_cast<long>(depth) * rows;
+  const long bytes = 4L * hb * (band_rows * (bw + 1) + vecs * m + words);
   return bytes > kMaxSmem ? -1 : static_cast<int>(bytes);
 }
 
-bool plan_ok(bool solve, int m, int bw, int hb, int depth, int rows, int smem) {
-  if (!plan_accepted(hb, depth)) return false;
+bool plan_ok(int kernel, int m, int bw, int hb, int depth, int rows, int smem, int refine) {
+  if (refine < 0 || !plan_accepted(hb, depth)) return false;
   if (depth == 0 ? rows != m : (rows < 1 || rows > m)) return false;
-  return smem >= 0 && smem == plan_smem(solve, m, bw, hb, depth, rows);
+  return smem >= 0 && smem == plan_smem(kernel, m, bw, hb, depth, rows, refine);
 }
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -146,6 +186,20 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A home's progress word in shared memory, passed from one thread to
+// another: the release store orders this thread's earlier shared-memory
+// stores before it, the acquire load the reader's later loads after it.
+__device__ __forceinline__ void publish(int* word, int v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(word));
+  asm volatile("st.release.cta.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ int observe(const int* word) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(word));
+  int v;
+  asm volatile("ld.acquire.cta.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
 }
 
 // ------------------------------------------------- row arithmetic
@@ -239,81 +293,6 @@ __device__ __forceinline__ float band_row(const float (&s)[BW + 1], const float 
   return out;
 }
 
-// ---------------------- the first design's device-memory functions
-// (factor_solve_kernel): the same rows, loaded from and stored to device
-// memory directly.
-struct Band {
-  // Element (row i, band offset k) of home b in (m, bw+1, B) storage.
-  const float* p;
-  int bwp1, B;
-  __device__ float at(int i, int k, int b) const {
-    return p[(static_cast<long>(i) * bwp1 + k) * B + b];
-  }
-};
-
-template <int BW>
-__device__ void chol_home(const float* __restrict__ S, float* L, int m, int B, int b) {
-  constexpr int W = BW + 1;
-  const Band Sb{S, W, B};
-  float prev[BW][W];
-  chol_init<BW>(prev);
-  for (int i = 0; i < m; ++i) {
-    float s[W], row[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) s[k] = Sb.at(i, k, b);
-    chol_row<BW>(s, prev, row);
-#pragma unroll
-    for (int k = 0; k < W; ++k) L[(static_cast<long>(i) * W + k) * B + b] = row[k];
-  }
-}
-
-// x ← (L Lᵀ)⁻¹ rhs for home b: forward substitution into y, then backward
-// substitution into x.  x may alias rhs: the backward pass never re-reads
-// the rhs.
-template <int BW>
-__device__ void solve_home(const float* L, const float* rhs, float* y, float* x, int m, int B,
-                           int b) {
-  constexpr int W = BW + 1;
-  const Band Lb{L, W, B};
-  float ring[BW] = {};
-  for (int i = 0; i < m; ++i) {
-    float l[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) l[k] = (i - k >= 0 || k == 0) ? Lb.at(i, k, b) : 0.0f;
-    y[static_cast<long>(i) * B + b] = fwd_row<BW>(rhs[static_cast<long>(i) * B + b], l, ring, i);
-  }
-#pragma unroll
-  for (int k = 0; k < BW; ++k) ring[k] = 0.0f;
-  for (int i = m - 1; i >= 0; --i) {
-    float below[BW];
-#pragma unroll
-    for (int k = 1; k <= BW; ++k) below[k - 1] = (i + k < m) ? Lb.at(i + k, k, b) : 0.0f;
-    x[static_cast<long>(i) * B + b] =
-        bwd_row<BW>(y[static_cast<long>(i) * B + b], Lb.at(i, 0, b), below, ring, i, m);
-  }
-}
-
-// t ← r − S x for home b.
-template <int BW>
-__device__ void residual_home(const float* __restrict__ S, const float* r, const float* x,
-                              float* t, int m, int B, int b) {
-  constexpr int W = BW + 1;
-  const Band Sb{S, W, B};
-  for (int i = 0; i < m; ++i) {
-    float s[W], below[BW], xw[2 * BW + 1];
-#pragma unroll
-    for (int k = 0; k < W; ++k) s[k] = Sb.at(i, k, b);
-#pragma unroll
-    for (int k = 1; k <= BW; ++k) below[k - 1] = (i + k < m) ? Sb.at(i + k, k, b) : 0.0f;
-#pragma unroll
-    for (int j = -BW; j <= BW; ++j) {
-      xw[BW + j] = (i + j >= 0 && i + j < m) ? x[static_cast<long>(i + j) * B + b] : 0.0f;
-    }
-    t[static_cast<long>(i) * B + b] =
-        sub(r[static_cast<long>(i) * B + b], band_row<BW>(s, below, xw, i, m));
-  }
-}
-
 // ----------------------------------------- staged row sources
 // A band array staged in shared memory: element (row i, offset k) of this
 // thread's home at col[(i·W + k)·hb].  next() is called once per chunk of
@@ -334,23 +313,27 @@ struct Whole {
 // A ring of kRingDepth slots of R rows.  The launch's chunks form one
 // stream: the factor takes S ascending; the solve takes L ascending
 // (forward), L descending (backward), then per refinement S descending
-// (residual), L ascending, L descending.  Stream chunk q lands in slot
-// q mod kRingDepth; next() issues chunk p + kRingDepth - 2 into the slot
-// that chunk p - 2 held, which is long consumed, then waits for chunk p.
+// (residual), L ascending, L descending; the fused kernel takes S
+// ascending (factor and forward), then as the solve from its backward
+// sweep on.  Stream chunk q lands in slot q mod kRingDepth; next() issues
+// chunk p + kRingDepth - 2 into the slot that chunk p - 2 held, which is
+// long consumed, then waits for chunk p.  Chunks from `hold` on read L
+// that this launch writes: they are issued only by release(), once it
+// has been written.
 template <int W>
 struct Ring {
   float* slots;                 // this thread's column of the ring
   const float *gL, *gS;         // this home's columns in device memory
   int hb, B, m, R, nc, n, p;    // n: chunks in the stream; p: next chunk
-  bool solve;
+  bool s_first;                 // chunk set 0 streams S (else L)
+  int hold;                     // first chunk held back until release()
 
   __device__ void issue(int q) {
-    if (q < n) {
+    if (q < n && q < hold) {
       const int s = q / nc, j = q - s * nc;
-      // 0: ascending over L (S for the factor); 1: descending over L;
-      // 2: descending over S.
-      const int kind = !solve ? 0 : s < 2 ? s : ((s - 2) % 3 == 0 ? 2 : (s - 2) % 3 - 1);
-      const float* g = (!solve || kind == 2) ? gS : gL;
+      // 0: ascending; 1: descending over L; 2: descending over S.
+      const int kind = s < 2 ? s : ((s - 2) % 3 == 0 ? 2 : (s - 2) % 3 - 1);
+      const float* g = (kind == 2 || (s == 0 && s_first)) ? gS : gL;
       const int c = kind == 0 ? j : nc - 1 - j;
       const int lo = c * R, hi = min(lo + R, m);
       float* dst = slots + (q % kRingDepth) * R * W * hb;
@@ -376,6 +359,16 @@ struct Ring {
     ++p;
     return rows;
   }
+  // Issues the held chunks that next() has passed over, after a fence
+  // that orders this thread's stores of L before the copies that read it
+  // back; each passed chunk committed an empty group, so the groups stay
+  // in stream order for cp.async.wait_group.
+  __device__ void release() {
+    __threadfence();
+    const int from = hold;
+    hold = n;
+    for (int q = from; q < p + kRingDepth - 2; ++q) issue(q);
+  }
 };
 
 template <int W>
@@ -389,9 +382,15 @@ __device__ __forceinline__ void load_row(float (&v)[W], const float* row, int hb
 // and vectors from shared memory (element i of this thread's column at
 // [i·hb]); R is the source's chunk (m for a whole band).
 
-// L ← factor(S), rows ascending; L goes straight to device memory.
-template <int BW, class Src>
-__device__ void factor_sweep(Src& src, float* __restrict__ gL, int m, int R, int hb, int B) {
+// L ← factor(S), rows ascending, to device memory; with SHARE (the
+// whole band, R = m), to Ls in the source's layout instead, each row's
+// progress published after it.  Ls may be the source's own rows, as row i
+// is stored after row i and the look-ahead row i+1 are loaded.  Nothing
+// goes to device memory then, so the release store waits on no global
+// store.
+template <int BW, bool SHARE, class Src>
+__device__ void factor_sweep(Src& src, float* __restrict__ gL, int m, int R, int hb, int B,
+                             float* Ls = nullptr, int* progress = nullptr) {
   constexpr int W = BW + 1;
   float prev[BW][W];
   chol_init<BW>(prev);
@@ -405,10 +404,71 @@ __device__ void factor_sweep(Src& src, float* __restrict__ gL, int m, int R, int
       float nxt[W], row[W];
       load_row<W>(nxt, rows + (min(i + 1, hi - 1) - lo) * W * hb, hb);
       chol_row<BW>(cur, prev, row);
+      if constexpr (SHARE) {
 #pragma unroll
-      for (int k = 0; k < W; ++k) gL[static_cast<long>(i * W + k) * B] = row[k];
+        for (int k = 0; k < W; ++k) Ls[(i * W + k) * hb] = row[k];
+        publish(progress, i + 1);
+      } else {
+#pragma unroll
+        for (int k = 0; k < W; ++k) gL[static_cast<long>(i * W + k) * B] = row[k];
+      }
 #pragma unroll
       for (int k = 0; k < W; ++k) cur[k] = nxt[k];
+    }
+  }
+}
+
+// y ← L⁻¹ rhs, rows ascending, each row once the factor's thread has
+// published it (L whole in Ls), which also goes to device memory from
+// here; y may alias rhs.  While it waits, the thread sleeps, leaving its
+// scheduler's issue slots to the factor.
+template <int BW>
+__device__ void forward_behind(const float* Ls, const int* progress, float* __restrict__ gL,
+                               const float* rhs, float* y, int m, int hb, int B) {
+  constexpr int W = BW + 1;
+  float ring[BW] = {};
+  int ready = 0;
+  for (int i = 0; i < m; ++i) {
+    while (ready <= i) {
+      ready = observe(progress);
+      if (ready <= i) __nanosleep(20);
+    }
+    float l[W];
+    load_row<W>(l, Ls + i * W * hb, hb);
+#pragma unroll
+    for (int k = 0; k < W; ++k) gL[static_cast<long>(i * W + k) * B] = l[k];
+    y[i * hb] = fwd_row<BW>(rhs[i * hb], l, ring, i);
+  }
+}
+
+// L ← factor(S) and y ← L⁻¹ rhs in one ascending pass of one thread (the
+// ring plan); L goes to device memory.  y may alias rhs.
+template <int BW, class Src>
+__device__ void factor_forward_sweep(Src& src, float* gL, const float* rhs, float* y, int m,
+                                     int R, int hb, int B) {
+  constexpr int W = BW + 1;
+  float prev[BW][W];
+  chol_init<BW>(prev);
+  float ring[BW] = {};
+  for (int lo = 0; lo < m; lo += R) {
+    const int hi = min(lo + R, m);
+    const float* rows = src.next();
+    float cur[W];
+    load_row<W>(cur, rows, hb);
+    float a = rhs[lo * hb];
+#pragma unroll 4
+    for (int i = lo; i < hi; ++i) {
+      const int nx = min(i + 1, hi - 1);
+      float nxt[W], row[W];
+      load_row<W>(nxt, rows + (nx - lo) * W * hb, hb);
+      const float an = rhs[nx * hb];
+      chol_row<BW>(cur, prev, row);
+#pragma unroll
+      for (int k = 0; k < W; ++k) gL[static_cast<long>(i * W + k) * B] = row[k];
+      y[i * hb] = fwd_row<BW>(a, row, ring, i);
+#pragma unroll
+      for (int k = 0; k < W; ++k) cur[k] = nxt[k];
+      a = an;
     }
   }
 }
@@ -536,18 +596,26 @@ __device__ void residual_sweep(Src& src, const float* r, const float* x, float* 
   }
 }
 
-// x ← solve(r), then `refine` passes of t = r − S x, t ← solve(t), x += t;
-// x goes to device memory in the last backward sweep.
+// The backward sweep of a first solve whose forward sweep left y in ts,
+// into xs, then `refine` passes of t = r − S x, t ← solve(t), x += t; x
+// goes to device memory in the last backward sweep.
 template <int BW, class LSrc, class SSrc>
-__device__ void solve_sweeps(LSrc& Ls, SSrc& Ss, const float* rs, float* xs, float* ts,
-                             float* __restrict__ gx, int m, int R, int hb, int B, int refine) {
-  forward_sweep<BW>(Ls, rs, ts, m, R, hb);
+__device__ void solve_tail(LSrc& Ls, SSrc& Ss, const float* rs, float* xs, float* ts,
+                           float* __restrict__ gx, int m, int R, int hb, int B, int refine) {
   backward_sweep<BW>(Ls, ts, xs, false, refine == 0 ? gx : nullptr, m, R, hb, B);
   for (int p = 0; p < refine; ++p) {
     residual_sweep<BW>(Ss, rs, xs, ts, m, R, hb);
     forward_sweep<BW>(Ls, ts, ts, m, R, hb);
     backward_sweep<BW>(Ls, ts, xs, true, p == refine - 1 ? gx : nullptr, m, R, hb, B);
   }
+}
+
+// x ← solve(r), then `refine` refinement passes.
+template <int BW, class LSrc, class SSrc>
+__device__ void solve_sweeps(LSrc& Ls, SSrc& Ss, const float* rs, float* xs, float* ts,
+                             float* __restrict__ gx, int m, int R, int hb, int B, int refine) {
+  forward_sweep<BW>(Ls, rs, ts, m, R, hb);
+  solve_tail<BW>(Ls, Ss, rs, xs, ts, gx, m, R, hb, B, refine);
 }
 
 // Copies rows [0, rows) of this home's band column g into col.
@@ -577,12 +645,12 @@ chol_kernel(const float* __restrict__ S, float* __restrict__ L, int m, int B, in
     stage<W>(col, S + b, m, hb, B);
     cp_commit();
     Whole<0> src{col};
-    factor_sweep<BW>(src, L + b, m, m, hb, B);
+    factor_sweep<BW, false>(src, L + b, m, m, hb, B);
   } else {
     const int nc = (m + R - 1) / R;
-    Ring<W> src{col, nullptr, S + b, hb, B, m, R, nc, nc, 0, false};
+    Ring<W> src{col, nullptr, S + b, hb, B, m, R, nc, nc, 0, true, nc};
     src.start();
-    factor_sweep<BW>(src, L + b, m, R, hb, B);
+    factor_sweep<BW, false>(src, L + b, m, R, hb, B);
   }
   cp_wait<0>();
 }
@@ -615,45 +683,84 @@ refined_solve_kernel(const float* __restrict__ L, const float* __restrict__ S,
   } else {
     cp_commit();                                  // group: r
     const int nc = (m + R - 1) / R;
-    Ring<W> ring{band, L + b, S + b, hb, B, m, R, nc, nc * (2 + 3 * refine), 0, true};
+    const int n = nc * (2 + 3 * refine);
+    Ring<W> ring{band, L + b, S + b, hb, B, m, R, nc, n, 0, false, n};
     ring.start();
     solve_sweeps<BW>(ring, ring, rs, xs, ts, x + b, m, R, hb, B, refine);
   }
   cp_wait<0>();
 }
 
-// factor_refined_solve_t: the factor, then the first refined solve, in one
-// launch — the thread reuses the factor it has just written (the first
-// design).  L, x, y and t are written and re-read inside the launch, so
-// none of them is declared __restrict__.
-template <int BW>
-__global__ void __launch_bounds__(kThreads)
+// factor_refined_solve_t: the factor, the forward and backward
+// substitutions and `refine` refinement passes in one launch.  Shared
+// memory, per home: r, which at refine 0 becomes y and then x (or r, x
+// and y/t when refining), then the whole band (S, turned into L row by
+// row; refining, L then S) or the ring, then the factor's progress word.
+// With the whole band (D = 0) a block is two warps: lane l of warp 0
+// stages S and factors home l, storing each L row in shared memory and
+// publishing it; lane l of warp 1 stages r and runs the forward
+// substitution a row behind, on another scheduler's issue slots (storing
+// L to device memory on the way), then the backward sweep and the
+// refinements.  Through the ring, one thread runs
+// the passes in turn (factor_forward_sweep, then solve_tail).  L is re-read
+// inside the launch, so it is not declared __restrict__.
+template <int BW, int D>
+__global__ void __launch_bounds__(D == 0 ? 2 * kMaxHomes : kMaxHomes)
 factor_solve_kernel(const float* __restrict__ S, const float* __restrict__ r, float* L,
-                    float* x, float* y, float* t, int m, int B, int refine) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  chol_home<BW>(S, L, m, B, b);
-  solve_home<BW>(L, r, y, x, m, B, b);
-  for (int p = 0; p < refine; ++p) {
-    residual_home<BW>(S, r, x, t, m, B, b);
-    solve_home<BW>(L, t, y, t, m, B, b);
-    for (int i = 0; i < m; ++i) {
-      const long o = static_cast<long>(i) * B + b;
-      x[o] = add(x[o], t[o]);
+                    float* __restrict__ x, int m, int B, int R, int refine, int hb) {
+  constexpr int W = BW + 1;
+  extern __shared__ float smem[];
+  const int lane = D == 0 ? threadIdx.x % kMaxHomes : threadIdx.x;
+  const int b = blockIdx.x * hb + lane;
+  float* rs = smem + lane;
+  float* xs = refine > 0 ? rs + m * hb : rs;
+  float* ts = refine > 0 ? xs + m * hb : rs;
+  float* band = (refine > 0 ? ts : rs) + m * hb;
+  if constexpr (D == 0) {
+    float* Sc = refine > 0 ? band + m * W * hb : band;
+    int* progress = reinterpret_cast<int*>(Sc + m * W * hb);   // this home's word
+    const bool factor = threadIdx.x < kMaxHomes;
+    if (factor && lane < hb) *progress = 0;
+    __syncthreads();                              // before any thread leaves
+    if (lane >= hb || b >= B) return;
+    Whole<0> Ss{Sc}, Ls{band};
+    if (factor) {
+      stage<W>(Sc, S + b, m, hb, B);
+      cp_commit();
+      factor_sweep<BW, true>(Ss, nullptr, m, m, hb, B, band, progress);
+    } else {
+      for (int i = 0; i < m; ++i) cp_async4(rs + i * hb, r + static_cast<long>(i) * B + b);
+      cp_commit();
+      cp_wait<0>();
+      forward_behind<BW>(band, progress, L + b, rs, ts, m, hb, B);
+      solve_tail<BW>(Ls, Ss, rs, xs, ts, x + b, m, m, hb, B, refine);
     }
+  } else {
+    if (b >= B) return;
+    for (int i = 0; i < m; ++i) cp_async4(rs + i * hb, r + static_cast<long>(i) * B + b);
+    cp_commit();                                  // group: r
+    const int nc = (m + R - 1) / R;
+    Ring<W> ring{band, L + b, S + b, hb, B, m, R, nc, nc * (2 + 3 * refine), 0, true, nc};
+    ring.start();
+    factor_forward_sweep<BW>(ring, L + b, rs, ts, m, R, hb, B);
+    ring.release();
+    solve_tail<BW>(ring, ring, rs, xs, ts, x + b, m, R, hb, B, refine);
   }
+  cp_wait<0>();
 }
 
-// Launches kernel over B homes in blocks of hb with smem bytes of dynamic
-// shared memory; returns the launch's CUDA error code.
+// Launches kernel over B homes in blocks of hb homes and `threads`
+// threads with smem bytes of dynamic shared memory; returns the launch's
+// CUDA error code.
 template <class Kernel, class... Args>
-int launch_blocks(Kernel kernel, int B, int hb, int smem, cudaStream_t s, Args... args) {
+int launch_blocks(Kernel kernel, int B, int hb, int threads, int smem, cudaStream_t s,
+                  Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<(B + hb - 1) / hb, hb, smem, s>>>(args...);
+  kernel<<<(B + hb - 1) / hb, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,43 +785,49 @@ int launch_blocks(Kernel kernel, int B, int hb, int smem, cudaStream_t s, Args..
 
 // Plain C interface (loaded with ctypes).  Each returns the CUDA error code
 // of its launch (0 = success); nothing synchronises, nothing allocates.
-// The staged kernels take the plan of ops/band_kernels.band_plan (homes
-// per block, ring depth, rows per chunk, shared-memory bytes) and return
+// Each takes the plan of ops/band_kernels.band_plan (homes per block,
+// ring depth, rows per chunk, shared-memory bytes) and returns
 // cudaErrorInvalidValue for a plan that is not one of BAND_KERNELS or does
-// not match (m, bw).
+// not match (m, bw, refine).
 
 extern "C" int band_cholesky_t(const float* S, float* L, int m, int bw, int B, int hb,
                                int depth, int rows, int smem, void* stream) {
   if (B == 0) return 0;
-  if (!plan_ok(false, m, bw, hb, depth, rows, smem)) {
+  if (!plan_ok(kCholesky, m, bw, hb, depth, rows, smem, 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BAND_DISPATCH(bw, (depth == 0
-                         ? launch_blocks(chol_kernel<BW, 0>, B, hb, smem, s, S, L, m, B, rows)
-                         : launch_blocks(chol_kernel<BW, kRingDepth>, B, hb, smem, s, S, L, m,
-                                         B, rows)));
+                         ? launch_blocks(chol_kernel<BW, 0>, B, hb, hb, smem, s, S, L, m, B,
+                                         rows)
+                         : launch_blocks(chol_kernel<BW, kRingDepth>, B, hb, hb, smem, s, S, L,
+                                         m, B, rows)));
 }
 
 extern "C" int band_refined_solve_t(const float* L, const float* S, const float* r, float* x,
                                     int m, int bw, int B, int refine, int hb, int depth,
                                     int rows, int smem, void* stream) {
   if (B == 0) return 0;
-  if (refine < 0 || !plan_ok(true, m, bw, hb, depth, rows, smem)) {
+  if (!plan_ok(kSolve, m, bw, hb, depth, rows, smem, refine)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BAND_DISPATCH(bw, (depth == 0 ? launch_blocks(refined_solve_kernel<BW, 0>, B, hb, smem, s, L,
-                                                S, r, x, m, B, rows, refine)
+  BAND_DISPATCH(bw, (depth == 0 ? launch_blocks(refined_solve_kernel<BW, 0>, B, hb, hb, smem, s,
+                                                L, S, r, x, m, B, rows, refine)
                                 : launch_blocks(refined_solve_kernel<BW, kRingDepth>, B, hb,
-                                                smem, s, L, S, r, x, m, B, rows, refine)));
+                                                hb, smem, s, L, S, r, x, m, B, rows, refine)));
 }
 
-extern "C" int band_factor_solve_t(const float* S, const float* r, float* L, float* x,
-                                   float* y, float* t, int m, int bw, int B, int refine,
-                                   void* stream) {
+extern "C" int band_factor_solve_t(const float* S, const float* r, float* L, float* x, int m,
+                                   int bw, int B, int refine, int hb, int depth, int rows,
+                                   int smem, void* stream) {
   if (B == 0) return 0;
+  if (!plan_ok(kFactorSolve, m, bw, hb, depth, rows, smem, refine)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BAND_DISPATCH(bw, launch_blocks(factor_solve_kernel<BW>, B, kThreads, 0, s, S, r, L, x, y, t,
-                                  m, B, refine));
+  BAND_DISPATCH(bw, (depth == 0 ? launch_blocks(factor_solve_kernel<BW, 0>, B, hb, 2 * kMaxHomes,
+                                                smem, s, S, r, L, x, m, B, rows, refine, hb)
+                                : launch_blocks(factor_solve_kernel<BW, kRingDepth>, B, hb, hb,
+                                                smem, s, S, r, L, x, m, B, rows, refine, hb)));
 }

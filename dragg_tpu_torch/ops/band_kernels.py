@@ -14,11 +14,12 @@ tensor runs the kernel's plain PyTorch version — the module-7 band path of
 ``ops/banded.py`` in the transposed layout, the same recurrences and
 operation order.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The first two kernels stage a block's rows in shared memory (whole, or
-streamed through a ring of chunks) as :func:`band_plan` decides from
-(m, bw), the batch and the card's SM count; the C entry points refuse any
-plan not in :data:`BAND_KERNELS`.  Every plan gives the same bits, so the
-choice never changes a result.  The kernels are built and bound by
+Each kernel stages a block's rows in shared memory (whole, or streamed
+through a ring of chunks) as :func:`band_plan` decides from (m, bw),
+refine, the batch and the card's SM count; the C entry points refuse any
+plan not in :data:`BAND_KERNELS` or whose bytes do not match
+:data:`SMEM_TERMS`.  Every plan gives the same bits, so the choice never
+changes a result.  The kernels are built and bound by
 ``ops/cuda_lib.py`` on first use.
 """
 
@@ -52,7 +53,19 @@ MAX_SMEM = 232_448  # dynamic shared memory of one block on sm_90 (227 KB)
 SM_SMEM = 233_472   # shared memory of one SM on sm_90, 1 KB of it reserved per block
 MAX_BLOCKS_PER_SM = 32
 H100_SMS = 132
-KERNEL_NAMES = ("cholesky", "solve")
+KERNEL_NAMES = ("cholesky", "solve", "factor_solve")
+# What a block holds (csrc/band.cu BAND_SMEM), per (kernel, refine > 0):
+# band arrays staged whole, vectors of m floats and single words, each per
+# home.  The factor: S.  The solve: L and S (S filled only when refining);
+# r, x and y/t.  The fused factor and solve: S, turning into L row by row,
+# one vector (r, then y, then x) and the factor's progress word; refining,
+# L and S apart, r, x and y/t, and the word.  A ring holds depth · rows
+# rows of one array in place of the whole arrays.
+SMEM_TERMS = {
+    ("cholesky", False): (1, 0, 0), ("cholesky", True): (1, 0, 0),
+    ("solve", False): (2, 3, 0), ("solve", True): (2, 3, 0),
+    ("factor_solve", False): (1, 1, 1), ("factor_solve", True): (2, 3, 1),
+}
 
 
 class BandPlan(NamedTuple):
@@ -67,27 +80,26 @@ class BandPlan(NamedTuple):
     smem: int
 
 
-def band_smem(kernel: str, m: int, bw: int, hb: int, depth: int, rows: int) -> int:
+def band_smem(kernel: str, m: int, bw: int, hb: int, depth: int, rows: int,
+              refine: int = 0) -> int:
     """Dynamic shared-memory bytes of one block (csrc/band.cu plan_smem):
-    the band rows held — all m, or the ring's depth · rows — of one array
-    (the factor's S; the solve's ring) or two (the solve's whole L and S),
-    plus the solve's r, x and y/t vectors."""
-    band_rows = m if depth == 0 else depth * rows
-    arrays = 2 if kernel == "solve" and depth == 0 else 1
-    vecs = 3 * m if kernel == "solve" else 0
-    return 4 * hb * (arrays * band_rows * (bw + 1) + vecs)
+    the band rows held — :data:`SMEM_TERMS`' whole arrays of m rows, or the
+    ring's depth · rows — plus its vectors and words."""
+    arrays, vecs, words = SMEM_TERMS[kernel, refine > 0]
+    band_rows = arrays * m if depth == 0 else depth * rows
+    return 4 * hb * (band_rows * (bw + 1) + vecs * m + words)
 
 
-def band_plans(m: int, bw: int, kernel: str) -> list[BandPlan]:
+def band_plans(m: int, bw: int, kernel: str, refine: int = 0) -> list[BandPlan]:
     """Every instantiation of :data:`BAND_KERNELS` that runs ``kernel``
-    (``"cholesky"`` or ``"solve"``) at (m, bw) within one block's shared
-    memory, in the table's order."""
+    (one of :data:`KERNEL_NAMES`) at (m, bw) and ``refine`` within one
+    block's shared memory, in the table's order."""
     if kernel not in KERNEL_NAMES:
         raise ValueError(f"band_plans: kernel {kernel!r} not in {KERNEL_NAMES}")
     plans = []
     for hb, depth in BAND_KERNELS:
         rows = m if depth == 0 else min(RING_ROWS, m)
-        smem = band_smem(kernel, m, bw, hb, depth, rows)
+        smem = band_smem(kernel, m, bw, hb, depth, rows, refine)
         if smem <= MAX_SMEM:
             plans.append(BandPlan(hb, depth, rows, smem))
     return plans
@@ -102,17 +114,18 @@ def band_waves(plan: BandPlan, B: int, sms: int = H100_SMS) -> int:
 
 
 @lru_cache(maxsize=4096)
-def band_plan(m: int, bw: int, kernel: str, B: int, sms: int = H100_SMS) -> BandPlan:
-    """The plan ``kernel`` runs at (m, bw) over B homes on a card of ``sms``
-    SMs: of :func:`band_plans`, the one needing the fewest waves of blocks
-    (:func:`band_waves`), then the whole band before the ring, then the
-    larger block.  Raises ``ValueError`` where no block can hold the
-    kernel's rows."""
+def band_plan(m: int, bw: int, kernel: str, B: int, sms: int = H100_SMS,
+              refine: int = 0) -> BandPlan:
+    """The plan ``kernel`` runs at (m, bw) and ``refine`` over B homes on a
+    card of ``sms`` SMs: of :func:`band_plans`, the one needing the fewest
+    waves of blocks (:func:`band_waves`), then the whole band before the
+    ring, then the larger block.  Raises ``ValueError`` where no block can
+    hold the kernel's rows."""
     if m < 1 or not 1 <= bw <= bd.MAX_BAND:
         raise ValueError(f"band_plan: no kernel for m={m}, bw={bw}")
-    plans = band_plans(m, bw, kernel)
+    plans = band_plans(m, bw, kernel, refine)
     if not plans:
-        raise ValueError(f"band_plan: no {kernel} kernel for m={m}, bw={bw}: the solve's "
+        raise ValueError(f"band_plan: no {kernel} kernel for m={m}, bw={bw}: its "
                          f"vectors of {min(hb for hb, _ in BAND_KERNELS)} homes exceed "
                          f"{MAX_SMEM} bytes of shared memory")
     return min(plans, key=lambda p: (band_waves(p, B, sms), p.depth > 0, -p.hb))
@@ -217,17 +230,24 @@ def solve_launch(Lt, St, rt, bw: int, refine: int, plan: BandPlan) -> torch.Tens
 
 
 def factor_refined_solve_t(St, rt, bw: int, refine: int = 0):
-    """(L, x ≈ S⁻¹ r): the factor and the first refined solve in one launch
-    of kernel ``band_factor_solve_t``, so the thread reuses the factor it
-    has just written."""
+    """(L, x ≈ S⁻¹ r): the factor, the forward substitution a row behind
+    it, the backward substitution and ``refine`` refinement passes, in one
+    launch of kernel ``band_factor_solve_t``.  St (m, bw+1, B), rt
+    (m, B)."""
     m, B = _check("factor_refined_solve_t", bw, bands=(St,), vecs=(rt,))
     if St.device.type == "cpu":
         return factor_solve_t_plain(St, rt, bw, refine)
-    L = torch.empty_like(St)
-    x, y, t = (torch.empty_like(rt) for _ in range(3))
+    plan = band_plan(m, bw, "factor_solve", B, _sms(St.device), refine)
+    return factor_solve_launch(St, rt, bw, refine, plan)
+
+
+def factor_solve_launch(St, rt, bw: int, refine: int, plan: BandPlan):
+    """Launch ``band_factor_solve_t`` with ``plan`` on checked CUDA
+    tensors; L and x are the only arrays it writes."""
+    m, B = rt.shape
+    L, x = torch.empty_like(St), torch.empty_like(rt)
     launch(LAUNCHES, "factor_refined_solve_t", lib().band_factor_solve_t,
-           St.device, ptr(St), ptr(rt), ptr(L), ptr(x), ptr(y), ptr(t),
-           m, bw, B, int(refine))
+           St.device, ptr(St), ptr(rt), ptr(L), ptr(x), m, bw, B, int(refine), *plan)
     return L, x
 
 

@@ -31,7 +31,8 @@ _SIGNATURES = {
     "band_cholesky_t": [_P, _P] + [_I] * 7 + [_P],
     # L, S, r, x, m, bw, B, refine, the plan's hb, depth, rows, smem, stream
     "band_refined_solve_t": [_P] * 4 + [_I] * 8 + [_P],
-    "band_factor_solve_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # S, r, L, x, m, bw, B, refine, the plan's hb, depth, rows, smem, stream
+    "band_factor_solve_t": [_P] * 4 + [_I] * 8 + [_P],
     # 17 inputs, 8 outputs, B, m, n, k, sigma, alpha, the plan's threads,
     # rows, cols, scols, cluster, regs, blocks_per_sm, smem, stream
     "fused_window": [_P] * 25 + [_I, _I, _I, _I, _D, _D] + [_I] * 8 + [_P],

@@ -164,60 +164,92 @@ def _bucket_ms(horizon):
 @pytest.mark.parametrize("bw", [1, 4, 7, 12])
 @pytest.mark.parametrize("horizon", [4, 24, 48])
 def test_band_plan_at_bucket_shapes(horizon, bw):
-    """Every bucket's m at H = 4, 24 and 48, at every bandwidth and at
-    batches from one home to 10,000, gets a plan of each staged kernel that
-    the C entry point accepts: (homes per block, ring depth) one of
+    """Every bucket's m at H = 4, 24 and 48, at every bandwidth, refine 0
+    and 1 and batches from one home to 10,000, gets a plan of each staged
+    kernel (the factor, the refined solve, the fused factor and solve)
+    that the C entry point accepts: (homes per block, ring depth) one of
     BAND_KERNELS, rows per chunk m (whole band) or RING_ROWS, its shared
     memory within one block's 232,448 bytes; of the plans that fit, the
     one needing the fewest waves of blocks on the H100's 132 SMs, then the
     whole band, then the larger block."""
     for m in _bucket_ms(horizon):
         for kernel in bk.KERNEL_NAMES:
-            fits = bk.band_plans(m, bw, kernel)
-            for B in (1, bk.BLOCK_HOMES, 1000, 4000, 10_000):
-                p = bk.band_plan(m, bw, kernel, B)
-                assert (p.hb, p.depth) in bk.BAND_KERNELS and p in fits
-                assert p.rows == (m if p.depth == 0 else min(bk.RING_ROWS, m))
-                assert p.smem == bk.band_smem(kernel, m, bw, p.hb, p.depth, p.rows)
-                assert p.smem <= bk.MAX_SMEM == 232_448
-                least = min(bk.band_waves(q, B) for q in fits)
-                assert bk.band_waves(p, B) == least
-                tied = [q for q in fits if bk.band_waves(q, B) == least]
-                assert p.depth == min(q.depth for q in tied)
-                assert p.hb == max(q.hb for q in tied if q.depth == p.depth)
+            for refine in (0, 1):
+                fits = bk.band_plans(m, bw, kernel, refine)
+                for B in (1, bk.BLOCK_HOMES, 1000, 4000, 10_000):
+                    p = bk.band_plan(m, bw, kernel, B, refine=refine)
+                    assert (p.hb, p.depth) in bk.BAND_KERNELS and p in fits
+                    assert p.rows == (m if p.depth == 0 else min(bk.RING_ROWS, m))
+                    assert p.smem == bk.band_smem(kernel, m, bw, p.hb, p.depth, p.rows, refine)
+                    assert p.smem <= bk.MAX_SMEM == 232_448
+                    least = min(bk.band_waves(q, B) for q in fits)
+                    assert bk.band_waves(p, B) == least
+                    tied = [q for q in fits if bk.band_waves(q, B) == least]
+                    assert p.depth == min(q.depth for q in tied)
+                    assert p.hb == max(q.hb for q in tied if q.depth == p.depth)
+        # Refining, the fused kernel holds what the solve holds and its
+        # progress word.
+        assert ([p[:3] for p in bk.band_plans(m, bw, "factor_solve", 1)]
+                == [p[:3] for p in bk.band_plans(m, bw, "solve")])
     if horizon == 24 and bw == 4:
         # The main path (B = 1,000 and 4,000) stages whole bands, 32 homes
         # a block; at 10,000 homes the solve's whole band would take 2-3
         # waves, and it streams (m = 77) or halves the block (m = 52), as
-        # the card measured fastest.
+        # the card measured fastest.  The fused kernel at refine 0 holds
+        # one band array (S, turning into L), one vector and its progress
+        # word: 59,264 bytes at m = 77, three blocks an SM, so 10,000 homes
+        # stay whole.
         for m in _bucket_ms(24):
             for k in bk.KERNEL_NAMES:
                 assert bk.band_plan(m, 4, k, 1000)[:2] == (32, 0)
                 assert bk.band_plan(m, 4, k, 4000)[:2] == (32, 0)
+            assert bk.band_plan(m, 4, "factor_solve", 10_000)[:2] == (32, 0)
         assert bk.band_plan(77, 4, "solve", 10_000)[:2] == (32, 4)
         assert bk.band_plan(52, 4, "solve", 10_000)[:2] == (16, 0)
+        assert bk.band_plan(77, 4, "factor_solve", 1000).smem == 59_264
+        assert bk.band_plan(77, 4, "factor_solve", 10_000, refine=1)[:2] == (32, 4)
     if horizon == 48 and bw == 4:
         # m = 149: 32 homes' whole L, S and vectors exceed a block, 16
         # homes' fit; at 10,000 homes the ring.  m = 100: the factor's
         # whole band at 10,000 homes, the solve's ring of 16-home blocks.
+        # The fused kernel at refine 0: 114,560 bytes at m = 149, whole up
+        # to 4,000 homes (two blocks an SM), the ring at 10,000.
         assert bk.band_plan(149, 4, "solve", 1000)[:2] == (16, 0)
         assert bk.band_plan(149, 4, "solve", 10_000)[:2] == (32, 4)
         assert bk.band_plan(149, 4, "cholesky", 1000)[:2] == (32, 0)
         assert bk.band_plan(149, 4, "cholesky", 10_000)[:2] == (32, 4)
         assert bk.band_plan(100, 4, "cholesky", 10_000)[:2] == (32, 0)
         assert bk.band_plan(100, 4, "solve", 10_000)[:2] == (16, 4)
+        assert bk.band_plan(149, 4, "factor_solve", 1000) == (32, 0, 149, 114_560)
+        assert bk.band_plan(149, 4, "factor_solve", 4000)[:2] == (32, 0)
+        assert bk.band_plan(149, 4, "factor_solve", 10_000)[:2] == (32, 4)
+        # m = 100: 76,928 bytes leave room for two 32-home blocks an SM
+        # (two waves at 10,000 homes), five 16-home blocks fit one wave.
+        assert bk.band_plan(100, 4, "factor_solve", 10_000)[:2] == (16, 0)
+        assert bk.band_plan(149, 4, "factor_solve", 1000, refine=1)[:2] == (16, 0)
+    if horizon == 4 and bw == 4:
+        for m in _bucket_ms(4):
+            for k in bk.KERNEL_NAMES:
+                assert bk.band_plan(m, 4, k, 10_000)[:3] == (32, 0, m)
 
 
 def test_band_plan_refuses_what_it_cannot_run():
-    """No plan where even the smallest block's solve vectors exceed one
-    block's shared memory, for m < 1, a bandwidth beyond MAX_BAND or an
-    unknown kernel; the factor alone streams any m through the ring."""
+    """No plan where even the smallest block's vectors exceed one block's
+    shared memory (the solve's three, or the fused kernel's one at refine
+    0 and three when refining), for m < 1, a bandwidth beyond MAX_BAND or
+    an unknown kernel; the factor alone streams any m through the ring."""
     with pytest.raises(ValueError, match="no solve kernel"):
         bk.band_plan(3000, 12, "solve", 1000)
+    with pytest.raises(ValueError, match="no factor_solve kernel"):
+        bk.band_plan(3000, 12, "factor_solve", 1000)
+    assert bk.band_plan(2000, 12, "factor_solve", 1000)[:2] == (16, 4)
+    with pytest.raises(ValueError, match="no factor_solve kernel"):
+        bk.band_plan(2000, 12, "factor_solve", 1000, refine=1)
     assert bk.band_plan(3000, 12, "cholesky", 1000).depth > 0
     for m, bw in ((0, 4), (10, 0), (10, tb.MAX_BAND + 1)):
-        with pytest.raises(ValueError, match="no kernel"):
-            bk.band_plan(m, bw, "cholesky", 1000)
+        for kernel in bk.KERNEL_NAMES:
+            with pytest.raises(ValueError, match="no kernel"):
+                bk.band_plan(m, bw, kernel, 1000)
     with pytest.raises(ValueError, match="kernel"):
         bk.band_plans(10, 4, "factor")
 
@@ -237,17 +269,65 @@ def test_ipm_step_ab_dry_run_on_the_cpu():
     assert bk.banded_cholesky_t.__name__ == "banded_cholesky_t"   # restored
 
 
+def test_route_ab_dry_run_on_the_cpu():
+    """bench_band.route_ab's loop on CPU tensors: the split and the fused
+    band route run the same steps in turns, the fused route makes fewer
+    band calls a step (one launch in place of the predictor's two), the
+    outputs agree bit for bit, and the wrappers and the route come back."""
+    from dragg_tpu_torch.bench_band import route_ab, route_verdict
+
+    res = route_ab(pairs=2, steps=2, homes=16, device="cpu")
+    for side in ("split", "fused"):
+        assert len(res[side]["s_per_step"]) == 2
+        assert res[side]["band_calls_per_step"] > 0
+    assert res["fused"]["band_calls_per_step"] < res["split"]["band_calls_per_step"]
+    assert res["outputs_equal"] and res["verdict"] in ("split", "fused", "unresolved")
+    assert bk.factor_refined_solve_t.__name__ == "factor_refined_solve_t"   # restored
+    # The rule: a lower median, 7 of 10 pairs won, and a gap wider than
+    # either side's interquartile half-width.
+    split = [1.0, 1.1, 1.2, 1.3, 1.4, 1.0, 1.1, 1.2, 1.3, 1.4]
+    assert route_verdict(split, [v - 0.5 for v in split]) == "fused"
+    assert route_verdict([v - 0.5 for v in split], split) == "split"
+    assert route_verdict(split, [v - 0.01 for v in split]) == "unresolved"
+    assert route_verdict(split, split[::-1]) == "unresolved"
+
+
 def test_band_kernel_table_matches_the_cuda_source():
     """``BAND_KERNELS`` lists exactly the instantiations of csrc/band.cu's
     BAND_KERNELS, in the same order (the C entry points refuse any other
-    plan), and every ring depth is the source's kRingDepth."""
+    plan), and every ring depth is the source's kRingDepth; the kernels'
+    shared-memory terms (``SMEM_TERMS``, read by ``band_smem``) are the
+    source's BAND_SMEM, and its plan_smem gives band_smem's bytes."""
     src = os.path.join(os.path.dirname(bk.__file__), "..", "csrc", "band.cu")
     with open(src) as f:
         text = f.read()
-    block = text[text.index("#define BAND_KERNELS(X)"):]
-    block = block[:block.index("\n\n")]
-    rows = [tuple(int(v) for v in r.split(","))
-            for r in re.findall(r"X\(([\d, ]+)\)", block)]
-    assert rows == list(bk.BAND_KERNELS)
+
+    def table(name):
+        block = text[text.index(f"#define {name}(X)"):]
+        block = block[:block.index("\n\n")]
+        return [tuple(int(v) for v in r.split(","))
+                for r in re.findall(r"X\(([\d, ]+)\)", block)]
+
+    assert table("BAND_KERNELS") == list(bk.BAND_KERNELS)
     depth = int(re.search(r"constexpr int kRingDepth = (\d+);", text).group(1))
     assert {d for _, d in bk.BAND_KERNELS} == {0, depth}
+    enum = re.search(r"enum Kernel \{([^}]*)\}", text).group(1)
+    codes = [int(v) for v in re.findall(r"= (\d+)", enum)]
+    assert codes == list(range(len(bk.KERNEL_NAMES)))
+    terms = {(bk.KERNEL_NAMES[k], bool(f)): tuple(t) for k, f, *t in table("BAND_SMEM")}
+    assert terms == bk.SMEM_TERMS
+
+    # plan_smem's arithmetic, evaluated as the source writes it.
+    body = text[text.index("int plan_smem("):]
+    body = body[:body.index("\n}\n")]
+    band_rows = re.search(r"const long band_rows = (.*);", body).group(1)
+    nbytes = re.search(r"const long bytes = (.*);", body).group(1)
+    assert band_rows == "depth == 0 ? arrays * m : static_cast<long>(depth) * rows"
+    assert nbytes == "4L * hb * (band_rows * (bw + 1) + vecs * m + words)"
+    for kernel in bk.KERNEL_NAMES:
+        for refine in (0, 2):
+            arrays, vecs, words = terms[kernel, refine > 0]
+            for m, bw, hb, depth, rows in ((77, 4, 32, 0, 77), (149, 12, 16, 4, 16)):
+                want = 4 * hb * ((arrays * m if depth == 0 else depth * rows) * (bw + 1)
+                                 + vecs * m + words)
+                assert bk.band_smem(kernel, m, bw, hb, depth, rows, refine) == want

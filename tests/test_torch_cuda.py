@@ -25,12 +25,13 @@ def card():
 @pytest.mark.parametrize("bw", [1, 4, 12])
 def test_kernels_match_plain_versions(card, bw, m, batch):
     """The band kernels bit for bit against their plain versions, refine
-    0, 1 and 2: the staged factor and solve at their plan and at every
-    other plan the shape admits (whole band and ring, both block sizes);
-    B = 1, fewer homes than a block, a block and one, a ragged 1,001;
-    m = 1, and m = 149, where 32 homes' whole band does not fit a block
-    for the solve at bw 4 and 12 and for the factor at bw 12.  The fused
-    route equals the split."""
+    0, 1 and 2: the staged factor, solve and fused factor and solve at
+    their plan and at every other plan the shape admits (whole band and
+    ring, both block sizes); B = 1, fewer homes than a block, a block and
+    one, a ragged 1,001; m = 1, and m = 149, where 32 homes' whole band
+    does not fit a block for the solve at bw 4 and 12 and for the factor
+    at bw 12.  The fused kernel equals the split route at every plan, the
+    ring's included, which reads back the L this launch wrote."""
     from dragg_tpu_torch.bench_band import band_fixture
 
     hb = bk.BLOCK_HOMES
@@ -46,6 +47,7 @@ def test_kernels_match_plain_versions(card, bw, m, batch):
     assert torch.equal(L, Lp)
     for plan in chol_plans:
         assert torch.equal(bk.cholesky_launch(St, bw, plan), Lp), plan
+    fused = 0
     for refine in (0, 1, 2):
         x = bk.refined_banded_solve_t(L, St, r, bw, refine)
         xp = bk.refined_solve_t_plain(Lp, St, r, bw, refine)
@@ -54,15 +56,22 @@ def test_kernels_match_plain_versions(card, bw, m, batch):
             assert torch.equal(bk.solve_launch(L, St, r, bw, refine, plan), xp), (plan, refine)
         L2, x2 = bk.factor_refined_solve_t(St, r, bw, refine)
         assert torch.equal(L2, L) and torch.equal(x2, x)
+        fused_plans = bk.band_plans(m, bw, "factor_solve", refine)
+        assert any(p.depth > 0 for p in fused_plans)
+        for plan in fused_plans:
+            L3, x3 = bk.factor_solve_launch(St, r, bw, refine, plan)
+            assert torch.equal(L3, Lp) and torch.equal(x3, xp), (plan, refine)
+        fused += 1 + len(fused_plans)
     torch.cuda.synchronize()
     assert bk.LAUNCHES == {"banded_cholesky_t": 1 + len(chol_plans),
                            "refined_banded_solve_t": 3 * (1 + len(solve_plans)),
-                           "factor_refined_solve_t": 3}
+                           "factor_refined_solve_t": fused}
 
 
 def test_refused_band_plan_raises(card):
     """A plan the C entry point does not list, or whose bytes do not match
-    the shape, is refused and never runs."""
+    the shape (or, for the fused kernel, the refine), is refused and never
+    runs."""
     from dragg_tpu_torch.bench_band import band_fixture
 
     St, r = band_fixture(29, 4, 10, seed=0)
@@ -71,6 +80,11 @@ def test_refused_band_plan_raises(card):
                  good._replace(smem=good.smem + 4), good._replace(depth=2, rows=5)):
         with pytest.raises(RuntimeError, match="CUDA launch failed"):
             bk.cholesky_launch(St, 4, plan)
+    fused = bk.band_plan(29, 4, "factor_solve", 10)
+    for plan, refine in ((fused, 1), (fused._replace(hb=24), 0),
+                         (bk.band_plan(29, 4, "cholesky", 10), 0)):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            bk.factor_solve_launch(St, r, 4, refine, plan)
 
 
 @pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64), (52, 148, 300),
