@@ -3,22 +3,42 @@
 
 Config + weather + price ingestion, seeded home synthesis (with the
 ``all_homes-<N>-config.json`` cache), the baseline simulation loop as
-chunks of engine steps, per-home data collection, the utility setpoint,
-and results.json in the reference's directory layout.
+chunks of engine steps with a resumable checkpoint at every chunk
+boundary, per-home data collection, the utility setpoint, and
+results.json in the reference's directory layout.
+
+The chunk loop is a two-slot host pipeline (``fleet.pipeline``, default
+on): once chunk N has run, its outputs and the state after it are copied
+into one of two host slots, and a worker thread collects them, rewrites
+results.json and writes the checkpoint while the main thread drives chunk
+N+1 on the card.  ``simulation.resume = true`` restores the latest
+checkpoint.
 
 Only the baseline case (``simulation.run_rbo_mpc``) of one community runs
-here; the RL cases, fleets, checkpoint/resume, telemetry and the sharded
-mesh raise NotImplementedError naming their config key.
+here; the RL cases, fleets, telemetry and the sharded mesh raise
+NotImplementedError naming their config key.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
+from dragg_tpu_torch.checkpoint import (
+    latest_checkpoint_dir,
+    load_progress,
+    load_pytree,
+    save_checkpoint_dir,
+    tree_flatten,
+    tree_unflatten,
+)
 from dragg_tpu_torch.collector import SeriesCollector
 from dragg_tpu_torch.config import configured_solver, load_config
 from dragg_tpu_torch.data import (
@@ -34,6 +54,7 @@ from dragg_tpu_torch.homes import (
     build_fleet_batch,
     check_home_configs,
     create_fleet_homes,
+    fleet_community_base,
     fleet_config,
 )
 from dragg_tpu_torch.layout import date_folder_name, run_dir_name
@@ -103,8 +124,15 @@ class Aggregator:
                 raise NotImplementedError(f"{section}.{key} is not ported yet")
         if self.config.get("tpu", {}).get("sharded", "auto") is True:
             raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
-        if fleet_config(self.config)[0] != 1:
+        n_comm, _, weather_off = fleet_config(self.config)
+        if n_comm != 1:
             raise NotImplementedError("fleet.communities: fleets are not ported yet")
+        if fleet_community_base(self.config) and weather_off:
+            # The base shifts the community's weather window by base ·
+            # offset hours, which only the fleet engine applies.
+            raise NotImplementedError(
+                "fleet.community_base: a nonzero base with "
+                "fleet.weather_offset_hours needs fleets, which are not ported yet")
         self.check_type = self.config["simulation"]["check_type"]
         self.case = "baseline"
 
@@ -137,9 +165,15 @@ class Aggregator:
         self.version = self.config["simulation"].get("named_version", "test")
         self.run_dir = None
         self._solve_iters: list[int] = []
-        # Home-steps that needed ReLU-QP's exact-refactorization tail over
-        # the run (StepOutputs.bank_fallback_count summed; 0 for the IPM).
+        # Home-steps that needed ReLU-QP's exact-refactorization tail
+        # (StepOutputs.bank_fallback_count summed; 0 for the IPM), since
+        # the run started or resumed.
         self.bank_fallback_total = 0.0
+        self.resumed_from: str | None = None  # checkpoint dir a run resumed from
+        # Stop after N chunks (None: run to the end).  Each chunk ends at a
+        # checkpoint, so stopping is a kill right after one: the hook the
+        # resume tests and staged runs use.
+        self.stop_after_chunks: int | None = None
 
     # ----------------------------------------------------------- population
     def _homes_cache_file(self) -> str:
@@ -197,7 +231,15 @@ class Aggregator:
         self._solve_iters = []
         self.bank_fallback_total = 0.0
         self.extra_summary = {}
-        self._phase_times = {"device_chunks": 0.0, "collect": 0.0}
+        # Summary.phase_times: ``device_chunks`` the main thread's seconds
+        # in run_chunk; ``collect`` the host's collect of a chunk's
+        # outputs; ``state_snapshot`` the main thread's seconds staging a
+        # chunk's outputs and state into a host slot; ``overlap_hidden_s``
+        # the host work (collect, results.json, checkpoint) that ran while
+        # the next chunk was still being driven (a lower bound: a window
+        # that outlasts that chunk is not credited).
+        self._phase_times = {"device_chunks": 0.0, "collect": 0.0,
+                             "overlap_hidden_s": 0.0, "state_snapshot": 0.0}
         n = len(self.all_homes)
         self.collector = SeriesCollector(n)
         self._home_static = {}
@@ -216,9 +258,9 @@ class Aggregator:
             self.collector.add_chunk(key, arr)
 
     def _collect_chunk(self, outs: StepOutputs) -> None:
-        """Append a chunk of stacked step outputs to the series store (one
-        device→host copy per field), then track the setpoint per step."""
-        host = {f: getattr(outs, f).cpu().numpy() for f in StepOutputs._fields}
+        """Append a chunk of stacked step outputs, host arrays, to the
+        series store, then track the setpoint per step."""
+        host = outs._asdict()
         n_steps = host["p_grid"].shape[0]
         for out_key, field in (*_BASE_KEYS.items(), *_PV_KEYS.items(),
                                *_BATT_KEYS.items()):
@@ -290,29 +332,191 @@ class Aggregator:
             max(float(h["hvac"]["p_c"]), float(h["hvac"]["p_h"])) + float(h["wh"]["p"])
             for h in self.all_homes))
 
+    # ------------------------------------------------------------ checkpoint
+    def _checkpoint_root(self) -> str:
+        return os.path.join(self.run_dir, self.case, "checkpoint")
+
+    def save_checkpoint(self, state) -> None:
+        """Persist the engine state after the chunk just collected and the
+        host bookkeeping, so the run can resume here: one versioned
+        directory (state.npz, collected.json, progress.json) published
+        through ``LATEST`` (``checkpoint.save_checkpoint_dir``).
+        results.json stays a user-facing output; a resume never reads it."""
+        save_checkpoint_dir(
+            self._checkpoint_root(), self.timestep, state, self._progress_dict(),
+            files={"collected.json": lambda path: self.collector.write_json(
+                path, self._results_plan(None))})
+
+    def _progress_dict(self) -> dict:
+        return {
+            "run_shape": self._run_shape(),
+            "timestep": self.timestep,
+            "elapsed": time.time() - self.start_time,
+            "baseline_agg_load_list": self.baseline_agg_load_list,
+            "all_rps": self.all_rps.tolist(),
+            "all_sps": self.all_sps.tolist(),
+            "solve_iters": self._solve_iters,
+            "tracked_loads": getattr(self, "tracked_loads", None),
+            "max_load": getattr(self, "max_load", None),
+            "min_load": getattr(self, "min_load", None),
+        }
+
+    def clear_checkpoint(self) -> None:
+        """Drop the resume checkpoint once a run completes, so a later run
+        with ``resume = true`` starts afresh instead of appending to
+        finished results."""
+        shutil.rmtree(self._checkpoint_root(), ignore_errors=True)
+
+    def _latest_checkpoint_dir(self) -> str | None:
+        return latest_checkpoint_dir(self._checkpoint_root())
+
+    def _run_shape(self) -> dict:
+        """What a checkpoint is valid for, with the JAX package's keys: the
+        restored bookkeeping arrays and the state are sized by these, and
+        the solver family and precision set what the warm carry means, so a
+        config change between runs starts afresh instead of failing later
+        in a shape check.  Event timelines, fleet RL and several processes
+        are not in this package, so ``events`` and ``rl_fleet`` are None and
+        ``process_count`` is 1."""
+        eng = self.engine
+        return {
+            "num_timesteps": self.num_timesteps,
+            "n_homes": len(self.all_homes),
+            "communities": 1,
+            "solver": eng.params.solver if eng is not None else None,
+            "precision": eng.params.precision if eng is not None else None,
+            "n_home_slots": eng.n_homes if eng is not None else None,
+            "warm_cols": eng.warm_cols if eng is not None else None,
+            "buckets": ([[b["name"], b["n_slots"]] for b in eng.bucket_info()]
+                        if eng is not None and eng.bucketed else None),
+            "horizon": int(self.config["home"]["hems"]["prediction_horizon"]),
+            "state_rev": 2,
+            "events": None,
+            "rl_fleet": None,
+            "process_count": 1,
+        }
+
+    def try_resume(self, template_state):
+        """(state, t) from the latest complete checkpoint when
+        ``simulation.resume`` is on and one exists for this run shape, else
+        (template_state, 0).  Sets ``resumed_from`` to the directory."""
+        self.resumed_from = None
+        if not self.config["simulation"].get("resume", False):
+            return template_state, 0
+        d = self._latest_checkpoint_dir()
+        if d is None:
+            return template_state, 0
+        prog = load_progress(os.path.join(d, "progress.json"))
+        want, got = self._run_shape(), prog.get("run_shape")
+        if got != want:
+            self.log.logger.warning(
+                f"Checkpoint {d} was written for run shape {got}, current config is "
+                f"{want}; ignoring it and starting fresh.")
+            return template_state, 0
+        state = load_pytree(os.path.join(d, "state.npz"), template_state)
+        self._restore_from_progress(d, prog)
+        self.timestep = int(prog["timestep"])
+        self.resumed_from = d
+        self.log.logger.info(f"Resuming {self.case} from timestep {self.timestep}.")
+        return state, self.timestep
+
+    def _restore_from_progress(self, d: str, prog: dict) -> None:
+        """The host bookkeeping of a checkpoint: the selected homes' series,
+        the aggregate lists, the setpoint tracker and the elapsed time."""
+        collected = load_progress(os.path.join(d, "collected.json"))
+        for i, home in enumerate(self.all_homes):
+            series = collected.get(home["name"])
+            if not series or not self._home_selected(home):
+                continue
+            for key, values in series.items():
+                if isinstance(values, list):
+                    self.collector.import_series(key, i, values)
+        self.baseline_agg_load_list = list(prog["baseline_agg_load_list"])
+        self.all_rps = np.asarray(prog["all_rps"], dtype=np.float64)
+        self.all_sps = np.asarray(prog["all_sps"], dtype=np.float64)
+        self._solve_iters = list(prog["solve_iters"])
+        if prog.get("tracked_loads") is not None:
+            self.tracked_loads = list(prog["tracked_loads"])
+            self.max_load = prog["max_load"]
+            self.min_load = prog["min_load"]
+        # Keep Summary.solve_time cumulative across the restart.
+        self.start_time = time.time() - float(prog.get("elapsed", 0.0))
+
     # ------------------------------------------------------------------ run
     def run_baseline(self) -> None:
         """The baseline community simulation (dragg/aggregator.py:757-778):
-        chunks of engine steps, with results.json rewritten at every chunk
-        boundary before the end."""
+        chunks of engine steps, with results.json and a checkpoint written
+        at every chunk boundary before the end.
+
+        Under ``fleet.pipeline`` (the default) chunk N's host work
+        (:meth:`_process_chunk`) runs on a worker thread while this thread
+        drives chunk N+1; it is joined before chunk N+1's hand-off, so the
+        collector, ``timestep`` and the checkpoints advance in chunk order.
+        ``fleet.pipeline = false`` does the host work here, in turn."""
         horizon_h = self.config["home"]["hems"]["prediction_horizon"]
         self.log.logger.info(f"Performing baseline run for horizon: {horizon_h}")
         self.start_time = time.time()
-        state = self.engine.init_state()
+        state, t = self.try_resume(self.engine.init_state())
         H = self.engine.params.horizon
-        t = 0
-        while t < self.num_timesteps:
-            n_steps = min(self.checkpoint_interval, self.num_timesteps - t)
-            d0 = time.perf_counter()
-            state, outs = self.engine.run_chunk(
-                state, t, np.zeros((n_steps, H), dtype=np.float32))
-            host_t0 = time.perf_counter()
-            self._phase_times["device_chunks"] += host_t0 - d0
-            self._collect_chunk(outs)
-            self._phase_times["collect"] += time.perf_counter() - host_t0
-            t += n_steps
-            if t < self.num_timesteps:
-                self.write_outputs()
+        pipelined = bool(self.config.get("fleet", {}).get("pipeline", True))
+        slots = (_HostSlot(self.device), _HostSlot(self.device))
+        chunks = 0
+        busy = None        # the worker's future for the chunk in host work
+        driving = None     # set once the chunk being driven has run
+
+        def more() -> bool:
+            return t < self.num_timesteps and (
+                self.stop_after_chunks is None or chunks < self.stop_after_chunks)
+
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="chunk-host") as pool:
+            while more():
+                n_steps = min(self.checkpoint_interval, self.num_timesteps - t)
+                d0 = time.perf_counter()
+                state, outs = self.engine.run_chunk(
+                    state, t, np.zeros((n_steps, H), dtype=np.float32))
+                device_s = time.perf_counter() - d0
+                if driving is not None:
+                    driving.set()
+                if busy is not None:
+                    busy.result()
+                # Copies queued before the next chunk's kernels; the slot
+                # was last read by the host work joined just above.
+                slot = slots[chunks % 2]
+                s0 = time.perf_counter()
+                slot.stage(outs, state)
+                t += n_steps
+                chunks += 1
+                pend = {"t_end": t, "slot": slot, "device_s": device_s,
+                        "snapshot_s": time.perf_counter() - s0}
+                if pipelined:
+                    driving = threading.Event() if more() else None
+                    busy = pool.submit(self._process_chunk, pend, driving)
+                else:
+                    self._process_chunk(pend, None)
+            if busy is not None:
+                busy.result()
+        if self.stop_after_chunks is not None and t < self.num_timesteps:
+            self.log.logger.info(f"Stopping early after {chunks} chunks.")
+
+    def _process_chunk(self, pend: dict, driving: threading.Event | None) -> None:
+        """Host work for one chunk that has run: collect its outputs and,
+        before the run's end, rewrite results.json and checkpoint the state
+        after it.  Reads only the chunk's host slot (numpy), never a device
+        tensor.  ``driving`` is the next chunk's event: the host window is
+        credited to ``overlap_hidden_s`` if that chunk was still running
+        when the window closed."""
+        host_t0 = time.perf_counter()
+        outs, after_state = pend["slot"].wait()
+        self._phase_times["device_chunks"] += pend["device_s"]
+        self._phase_times["state_snapshot"] += pend["snapshot_s"]
+        self._collect_chunk(outs)
+        self._phase_times["collect"] += time.perf_counter() - host_t0
+        if pend["t_end"] < self.num_timesteps:
+            self.log.logger.info("Creating a checkpoint file.")
+            self.write_outputs()
+            self.save_checkpoint(after_state)
+        if driving is not None and not driving.is_set():
+            self._phase_times["overlap_hidden_s"] += time.perf_counter() - host_t0
 
     def check_baseline_vals(self) -> list[str]:
         """Result-shape check over the selected homes
@@ -376,9 +580,11 @@ class Aggregator:
         summary.update(self.extra_summary)
         return summary
 
-    def _results_plan(self, summary: dict) -> list[tuple]:
+    def _results_plan(self, summary: dict | None) -> list[tuple]:
         """The streaming write plan for results.json: raw JSON fragments for
-        structure/static fields, series references for the numeric arrays."""
+        structure/static fields, series references for the numeric arrays;
+        without a Summary block when ``summary`` is None (a checkpoint's
+        collected.json)."""
         plan: list[tuple] = [("raw", "{")]
         for i, home in enumerate(self.all_homes):
             if i:
@@ -401,8 +607,9 @@ class Aggregator:
                 else:
                     plan.append(("raw", "[]"))
             plan.append(("raw", "}"))
-        plan.append(("raw", (", " if self.all_homes else "")
-                     + '"Summary": ' + json.dumps(summary)))
+        if summary is not None:
+            plan.append(("raw", (", " if self.all_homes else "")
+                         + '"Summary": ' + json.dumps(summary)))
         plan.append(("raw", "}"))
         return plan
 
@@ -435,5 +642,44 @@ class Aggregator:
             self._build_engine()
             self.reset_collected_data()
             self.run_baseline()
-            self.check_baseline_vals()
-            self.write_outputs()
+            if self.timestep >= self.num_timesteps:
+                self.check_baseline_vals()
+                self.write_outputs()
+                self.clear_checkpoint()
+            # Otherwise it stopped early at a chunk boundary, where
+            # results.json and the checkpoint were already written.
+
+
+class _HostSlot:
+    """Host buffers one chunk's outputs and the state after it are copied
+    into: pinned memory on a CUDA device, so the copies run asynchronously.
+    The main thread queues the copies on the device's stream before it
+    launches the next chunk, so they run ahead of that chunk's kernels; the
+    thread that processes the chunk waits on the copies' event alone,
+    never on the stream (a ``.cpu()`` there would queue behind the next
+    chunk), and reads numpy views."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: list[torch.Tensor] = []
+        self._structure = None
+        self._event = None
+
+    def stage(self, outs: StepOutputs, state) -> None:
+        """Queue the copies of ``(outs, state)`` (main thread)."""
+        leaves, self._structure = tree_flatten((outs, state))
+        if [(b.shape, b.dtype) for b in self._bufs] != [(a.shape, a.dtype) for a in leaves]:
+            pin = self.device.type == "cuda"
+            self._bufs = [torch.empty(a.shape, dtype=a.dtype, pin_memory=pin and a.numel() > 0)
+                          for a in leaves]
+        for buf, a in zip(self._bufs, leaves):
+            buf.copy_(a, non_blocking=True)
+        if self.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(self.device))
+
+    def wait(self) -> tuple:
+        """``(outs, state)`` as numpy views once the copies have landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return tree_unflatten(self._structure, [b.numpy() for b in self._bufs])

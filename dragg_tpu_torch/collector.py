@@ -33,6 +33,22 @@ class SeriesCollector:
             chunks[:] = [np.concatenate(chunks, axis=0)]
         return chunks[0]
 
+    def import_series(self, key: str, home_idx: int, values) -> None:
+        """Replace home ``home_idx``'s series ``key`` with ``values`` (a
+        resumed run restoring a checkpoint's per-home lists).  The store
+        stays dense: it grows to the longest series imported, and rows a
+        home has no value for hold NaN.  A resume imports every home whose
+        series reach results.json, all to the same length, so only homes
+        whose series are never written keep NaN rows."""
+        arr = np.asarray(values, dtype=np.float64).reshape(-1)
+        cur = self._series(key)
+        if cur.shape[0] < arr.size:
+            pad = np.full((arr.size - cur.shape[0], self.n_homes), np.nan)
+            cur = np.concatenate([cur, pad], axis=0)
+            self._chunks[key] = [cur]
+        cur[:, home_idx] = np.nan
+        cur[:arr.size, home_idx] = arr
+
     def length(self, key: str, home_idx: int = 0) -> int:
         return int(self._series(key).shape[0])
 

@@ -286,8 +286,9 @@ _DEFAULT: dict[str, Any] = {
         "seed_stride": 1,            # community c's seed = random_seed + c·stride
         "community_base": 0,         # global index of the first community
         "weather_offset_hours": 0,
-        "pipeline": True,            # the aggregator's chunk loop here is
-                                     # synchronous whatever this says
+        "pipeline": True,            # chunk N's host work (collect, results,
+                                     # checkpoint) on a worker thread while
+                                     # the card runs chunk N+1; false: in turn
     },
     # Cross-process fleet sharding: not ported.
     "shard": {
@@ -352,9 +353,9 @@ _DEFAULT: dict[str, Any] = {
                                        # applies integer duty counts
                                        # (dragg/mpc_calc.py:171-173)
         "integer_repair": "project",  # "project": closed-form k=1 state
-                                      # update, no second solve (the only
-                                      # mode ported); "resolve": re-solve
-        "repair_eps": 1e-3,       # tolerance of the "resolve" re-solve
+                                      # update, no second solve; "resolve":
+                                      # re-solve with the counts pinned
+        "repair_eps": 1e-3,       # IPM tolerance of the "resolve" re-solve
         "ipm_freeze_zmax": 300.0,  # divergence freeze: stop a home whose rp
                                    # stalls while its box duals (scaled
                                    # space) exceed this
@@ -362,9 +363,10 @@ _DEFAULT: dict[str, Any] = {
         "band_fused": False,      # factor + predictor solve in one CUDA
                                   # launch (band_factor_solve_t) instead of
                                   # the factor kernel then the solve kernel
-        "band_kernel": "auto",    # "auto" | "pallas" | "xla" all run the band
-                                  # kernels of ops/band_kernels.py here;
-                                  # "cr" (cyclic reduction) is not ported
+        "band_kernel": "auto",    # "auto" | "pallas": the band kernels of
+                                  # ops/band_kernels.py; "xla": their plain
+                                  # versions; "cr" (cyclic reduction) is
+                                  # not ported
         "bucketed": "auto",       # solve each home-type bucket at its own
                                   # (n, m) shape; "auto" buckets when the
                                   # community has >= 32 homes and >= 25 % of

@@ -14,8 +14,9 @@ Each step, for every home-type bucket:
    and solves run in the CUDA kernels of ``ops/band_kernels.py``, or
    ReLU-QP (``ops/reluqp.py``), whose check windows run in the CUDA kernel
    of ``ops/iter_kernels.py`` under ``tpu.iter_kernel = "pallas"``;
-4. pins the first action to integer duty counts in closed form
-   (``integer_repair = "project"``);
+4. pins the first action to integer duty counts, in closed form
+   (``integer_repair = "project"``) or by a second solve with the three
+   k = 0 counts pinned in the box (``"resolve"``);
 5. routes homes whose solve failed through the fallback controller
    (dragg/mpc_calc.py:527-596) and advances the state.
 
@@ -200,7 +201,10 @@ class EngineParams(NamedTuple):
     ipm_eps: float      # IPM stopping tolerance
     ipm_freeze_zmax: float  # divergence-freeze dual threshold (scaled space)
     band_fused: bool    # factor + predictor solve in one kernel launch
-    integer_first_action: bool  # pin rounded k=0 duty counts ("project")
+    band_kernel: str    # "auto" | "pallas" (the CUDA kernels) | "xla" (plain versions)
+    integer_first_action: bool  # pin the rounded k=0 duty counts
+    integer_repair: str  # "project" (closed-form k=1 update) | "resolve" (pinned re-solve)
+    repair_eps: float   # IPM tolerance of the "resolve" re-solve
     forecast_noise_cap: float  # max forecast-noise std, degC
     bucketed: str       # "auto" | "true" | "false"
     seed: int
@@ -240,6 +244,7 @@ class Engine:
         cmask = np.asarray(check_mask, dtype=np.float64)
         ranges = resolve_bucket_plan(params.bucketed, codes)
         self._bucketed = ranges is not None
+        self.n_homes = batch.n_homes
         if ranges is None:
             ranges = [("superset", 0, batch.n_homes)]
         key = rng.prng_key(params.seed, dev)
@@ -263,6 +268,14 @@ class Engine:
         return self._bucketed
 
     @property
+    def warm_cols(self):
+        """Width of the warm-start columns of CommunityState (a list, one
+        per bucket, when bucketed): the layout's variable count where the
+        solver carries a warm start, else 0."""
+        widths = [c.lay.n if self._carry_warm else 0 for c in self._buckets]
+        return widths if self._bucketed else widths[0]
+
+    @property
     def iter_kernel(self) -> str:
         """The resolved ReLU-QP check-window route: "lax" or "pallas"."""
         return self._iter_kernel
@@ -270,7 +283,7 @@ class Engine:
     def bucket_info(self) -> list[dict]:
         """One dict per bucket: its type, home range, solved shape and the
         bandwidth of its Schur band factor."""
-        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n,
+        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n, n_slots=c.n,
                      m_eq=c.lay.m_eq, n_var=c.lay.n,
                      nnz=c.static.pattern.nnz,
                      band_bw=band_plan(c.static.pattern).bw)
@@ -371,47 +384,63 @@ class Engine:
 
     def _solve(self, ctx: _TypeBucket, state: CommunityState, qp, factor, refresh: bool):
         """Solve phase for one bucket: the configured solver on the relaxed
-        QP, then the closed-form integer pin of the first action.  Returns
-        (solution, solver carry, relaxed solution, repair_failed)."""
+        QP, then the integer pin of the first action.  Returns (solution,
+        solver carry, relaxed solution, repair_failed)."""
         p = self.params
         if p.solver == "reluqp":
             # The pre-factorized dense family: the carry holds the rho bank;
             # ``refresh`` re-equilibrates and rebuilds it.  Warm-started from
             # the receding-horizon shift of the last relaxed solution.
-            relaxed, factor = reluqp_solve_qp_cached(
-                ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
-                factor, refresh,
-                rho0=p.reluqp_rho, rho_factor=p.reluqp_rho_factor,
-                bank=p.reluqp_bank, sigma=p.admm_sigma, alpha=p.admm_alpha,
-                eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
-                iters=p.reluqp_iters, patience=p.admm_patience,
-                tail_iters=p.reluqp_tail_iters, precision=p.precision,
-                iter_kernel=self._iter_kernel,
-                x0=state.warm_x, y_box0=state.warm_y_box, rho_warm=state.warm_rho,
-            )
+            def run_solver(l_box, u_box, fac, ref, x0, y0, rho_w):
+                return reluqp_solve_qp_cached(
+                    ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
+                    fac, ref,
+                    rho0=p.reluqp_rho, rho_factor=p.reluqp_rho_factor,
+                    bank=p.reluqp_bank, sigma=p.admm_sigma, alpha=p.admm_alpha,
+                    eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
+                    iters=p.reluqp_iters, patience=p.admm_patience,
+                    tail_iters=p.reluqp_tail_iters, precision=p.precision,
+                    iter_kernel=self._iter_kernel,
+                    x0=x0, y_box0=y0, rho_warm=rho_w)
+
+            relaxed, factor = run_solver(qp.l_box, qp.u_box, factor, refresh,
+                                         state.warm_x, state.warm_y_box, state.warm_rho)
+            # The pinned re-solve starts warm from the relaxed solution on
+            # the bank just built.
+            resolve = lambda l2, u2: run_solver(  # noqa: E731
+                l2, u2, factor, False, relaxed.x, relaxed.y_box, relaxed.rho)[0]
         else:
-            relaxed = ipm_solve_qp(
-                ctx.static.pattern, qp.vals, qp.b_eq, qp.l_box, qp.u_box, qp.q,
-                reg=p.reg, iters=p.ipm_iters,
-                tail_frac=p.ipm_tail_frac, tail_iters=p.ipm_tail_iters,
-                eps_abs=p.ipm_eps, eps_rel=p.ipm_eps,
-                x0=state.warm_x if p.ipm_warm else None,
-                freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
-            )
+            def run_solver(l_box, u_box, eps=p.ipm_eps):
+                return ipm_solve_qp(
+                    ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
+                    reg=p.reg, iters=p.ipm_iters,
+                    tail_frac=p.ipm_tail_frac, tail_iters=p.ipm_tail_iters,
+                    eps_abs=eps, eps_rel=eps,
+                    x0=state.warm_x if p.ipm_warm else None,
+                    freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
+                    band_kernel=p.band_kernel)
+
+            relaxed = run_solver(qp.l_box, qp.u_box)
+            # The pinned re-solve runs cold at the looser repair_eps: what
+            # it applies is the pinned counts themselves.
+            resolve = lambda l2, u2: run_solver(l2, u2, eps=p.repair_eps)  # noqa: E731
         if not p.integer_first_action:
             return (relaxed, factor, relaxed,
                     torch.zeros((), dtype=F32, device=self.device))
-        sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed)
+        sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed, resolve)
         return sol, factor, relaxed, repair_failed
 
-    def _integerize_first_action(self, ctx: _TypeBucket, qp, sol):
+    def _integerize_first_action(self, ctx: _TypeBucket, qp, sol, resolve):
         """Pin the three k=0 duty counts to rounded values (the reference's
-        integer duty cycles, dragg/mpc_calc.py:171-173) in closed form
-        (``integer_repair = "project"``): the k=1 temperatures are affine in
-        the k=0 counts, so each pin is bumped one count in the
-        comfort-safe direction and the k=1 entries move by the same affine
-        delta, with no second solve.  Homes whose pinned k=1 temperatures
-        still leave their bands keep the relaxed action."""
+        integer duty cycles, dragg/mpc_calc.py:171-173), each bumped one
+        count in the comfort-safe direction: the k=1 temperatures are
+        affine in the k=0 counts.  ``integer_repair = "project"`` moves the
+        k=1 entries by the same affine delta, with no second solve; homes
+        whose pinned k=1 temperatures still leave their bands keep the
+        relaxed action.  ``"resolve"`` pins the counts in the box and
+        re-solves with ``resolve(l_box, u_box)``; homes whose re-solve
+        fails keep the relaxed action.  Either way the solved flag and the
+        per-home attribution stay the relaxed solve's."""
         lay, st, b = ctx.lay, ctx.static, ctx.batch
         pc, ph, pwh = b.hvac_p_c, b.hvac_p_h, b.wh_p
         a_in, awr, a_wh = st.a_in, st.awr, st.a_wh
@@ -456,6 +485,25 @@ class Engine:
                             torch.where(high > 0,
                                         torch.maximum(pin_w - 1, lo(lay.i_wh)),
                                         pin_w))
+
+        if self.params.integer_repair == "resolve":
+            cols = [lay.i_cool, lay.i_heat, lay.i_wh]
+            pinned = torch.stack([pin_c, pin_h, pin_w], dim=1)
+            l2, u2 = qp.l_box.clone(), qp.u_box.clone()
+            l2[:, cols] = pinned
+            u2[:, cols] = pinned
+            sol2 = resolve(l2, u2)
+            # Adopt the re-solve only where both solves succeeded.
+            keep = sol2.solved & sol.solved
+            repair_failed = torch.sum(torch.where(sol.solved & ~sol2.solved,
+                                                  ctx.check_mask, 0.0))
+            pick = lambda a2, a: torch.where(  # noqa: E731
+                keep.reshape(keep.shape + (1,) * (a.ndim - 1)), a2, a)
+            return sol._replace(
+                x=pick(sol2.x, sol.x), y_eq=pick(sol2.y_eq, sol.y_eq),
+                y_box=pick(sol2.y_box, sol.y_box),
+                r_prim=pick(sol2.r_prim, sol.r_prim), r_dual=pick(sol2.r_dual, sol.r_dual),
+                iters=sol.iters + sol2.iters, rho=pick(sol2.rho, sol.rho)), repair_failed
 
         dwh1 = dwh(pin_w)
         t1f = col(x, lay.i_tin + 1) + dt1
@@ -679,9 +727,6 @@ def engine_params(config, start_index: int) -> EngineParams:
     if repair_mode not in ("project", "resolve"):
         raise ValueError(
             f"tpu.integer_repair must be project|resolve, got {repair_mode!r}")
-    if repair_mode == "resolve":
-        raise NotImplementedError(
-            "tpu.integer_repair: only 'project' is ported")
     bucketed = str(tpu_cfg.get("bucketed", "auto")).lower()
     if bucketed not in ("auto", "true", "false"):
         raise ValueError(
@@ -693,8 +738,8 @@ def engine_params(config, start_index: int) -> EngineParams:
             f"tpu.band_kernel must be auto|pallas|xla|cr, got {kern!r}")
     if kern == "cr":
         raise NotImplementedError(
-            "tpu.band_kernel: cyclic reduction ('cr') is not ported; the "
-            "band factor runs in the CUDA kernels (plain PyTorch on the CPU)")
+            "tpu.band_kernel: cyclic reduction ('cr') is not ported; 'auto' "
+            "and 'pallas' run the CUDA band kernels, 'xla' their plain versions")
     if config.get("telemetry", {}).get("per_home", False):
         raise NotImplementedError(
             "telemetry.per_home: the per-home observatory is not ported")
@@ -737,7 +782,10 @@ def engine_params(config, start_index: int) -> EngineParams:
         ipm_eps=float(tpu_cfg.get("ipm_eps", 2e-4)),
         ipm_freeze_zmax=float(tpu_cfg.get("ipm_freeze_zmax", 300.0)),
         band_fused=bool(tpu_cfg.get("band_fused", False)),
+        band_kernel=kern,
         integer_first_action=bool(tpu_cfg.get("integer_first_action", True)),
+        integer_repair=repair_mode,
+        repair_eps=float(tpu_cfg.get("repair_eps", 1e-3)),
         forecast_noise_cap=float(tpu_cfg.get("forecast_noise_cap", 3.0)),
         bucketed=bucketed,
         seed=int(config["simulation"]["random_seed"]),

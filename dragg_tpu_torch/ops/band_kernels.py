@@ -263,7 +263,7 @@ def band_scatter_t(plan, contrib: torch.Tensor, index=None) -> torch.Tensor:
     return St
 
 
-def make_band_ops(plan, device, fused: bool = False):
+def make_band_ops(plan, device, fused: bool = False, kernel: str = "auto"):
     """The band operations the interior point runs on ``device``, in the
     transposed layout: ``(scatter_fn, chol_fn, solve_fn, add_diag_fn,
     factor_solve_fn)`` as ``pallas_band.make_band_ops`` returns them.
@@ -272,16 +272,23 @@ def make_band_ops(plan, device, fused: bool = False):
     refine)`` take ``rp`` as (B, m) in permuted row order.  ``fused``
     picks the one-launch factor + first solve for ``factor_solve_fn``;
     the split route (factor kernel, then solve kernel) is the one the TPU
-    ran."""
+    ran.  ``kernel`` is ``tpu.band_kernel``: "auto" and "pallas" call the
+    kernels' wrappers (which launch on a CUDA tensor), "xla" the plain
+    versions on any device, as the JAX package's scan path."""
+    if kernel not in ("auto", "pallas", "xla"):
+        raise ValueError(f"make_band_ops: band kernel {kernel!r} not in auto|pallas|xla")
     bw = plan.bw
     index = bd.plan_index(plan, device)
+    plain = kernel == "xla"
+    chol = cholesky_t_plain if plain else banded_cholesky_t
+    solve = refined_solve_t_plain if plain else refined_banded_solve_t
+    factor_solve = factor_solve_t_plain if plain else factor_refined_solve_t
 
     def chol_fn(Sb):
-        return banded_cholesky_t(Sb, bw)
+        return chol(Sb, bw)
 
     def solve_fn(Lb, Sb, rp, refine):
-        return refined_banded_solve_t(Lb, Sb, rp.T.contiguous(), bw,
-                                      refine=refine).T
+        return solve(Lb, Sb, rp.T.contiguous(), bw, refine).T
 
     def add_diag_fn(Sb, rel):
         Sb = Sb.clone()
@@ -290,8 +297,7 @@ def make_band_ops(plan, device, fused: bool = False):
 
     if fused:
         def factor_solve_fn(Sb, rp, refine):
-            Lb, x = factor_refined_solve_t(Sb, rp.T.contiguous(), bw,
-                                           refine=refine)
+            Lb, x = factor_solve(Sb, rp.T.contiguous(), bw, refine)
             return Lb, x.T
     else:
         def factor_solve_fn(Sb, rp, refine):

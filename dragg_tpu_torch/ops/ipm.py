@@ -67,13 +67,16 @@ def ipm_solve_qp(
     eps_rel: float = 2e-4,
     ruiz_iters: int = 10,
     fused: bool = False,
+    band_kernel: str = "auto",
     x0: torch.Tensor | None = None,
     warm_mu: float = 1e-2,
     freeze_zmax: float = 300.0,
 ) -> ADMMSolution:
     """Solve the batch (all tensors float32 on one device); returns the
     ADMM-compatible solution record (y_box carries z_u − z_l).  ``fused``
-    runs the factor and the predictor solve as one kernel launch."""
+    runs the factor and the predictor solve as one kernel launch;
+    ``band_kernel = "xla"`` runs the band operations' plain versions
+    instead of the kernels (``band_kernels.make_band_ops``)."""
     B = vals.shape[0]
     m, n = pat.m, pat.n
     dev = vals.device
@@ -144,7 +147,8 @@ def ipm_solve_qp(
     shared = dict(row_cols=row_cols, col_rows=col_rows,
                   perm_ix=idx(plan.perm), invp_ix=idx(plan.inv),
                   schur=schur_index(schur, dev),
-                  band_ops=band_kernels.make_band_ops(plan, dev, fused=fused),
+                  band_ops=band_kernels.make_band_ops(plan, dev, fused=fused,
+                                                            kernel=band_kernel),
                   freeze_zmax=freeze_zmax)
     data = (vals_s, vp_r, vp_c, qs, bs, ls, us, reg_s, fin_l, fin_u, n_act, c * d)
     x, y, s_l, s_u, z_l, z_u, cit, i_done = _run_phases(

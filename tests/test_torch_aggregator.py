@@ -2,8 +2,10 @@
 on the CPU) against the JAX package's, on the tests/test_engine.py day-run
 community: results.json carries the same keys, and the same series to
 1e-4 absolute (two float32 solvers ~1e-5 apart; see test_torch_engine).
-Also: a CPU run of the port loads neither jax nor dragg_tpu, and an
-Aggregator built without a device needs a CUDA card."""
+Also: a CPU run of the port, resumed from a checkpoint too, loads neither
+jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
+card; settings outside the port raise; and a community base without a
+weather offset runs the JAX package's homes on its weather."""
 
 import json
 import os
@@ -78,20 +80,33 @@ def test_series_match(day_runs):
 
 
 def test_cpu_run_loads_no_jax(tmp_path):
+    cfg_path, out = str(tmp_path / "cfg.toml"), str(tmp_path / "out")
     code = (
         "import sys\n"
         "from dragg_tpu_torch.__main__ import main\n"
-        f"main(['run', '--config', {str(tmp_path / 'cfg.toml')!r}, '--outputs-dir', "
-        f"{str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
+        "from dragg_tpu_torch.aggregator import Aggregator\n"
+        f"main(['run', '--config', {cfg_path!r}, '--outputs-dir', {out!r}, "
+        "'--device', 'cpu'])\n"
+        # The same run stopped after its first hourly chunk, then resumed.
+        f"part = Aggregator(config={cfg_path!r}, outputs_dir={out + '-resumed'!r}, "
+        "device='cpu')\n"
+        "part.stop_after_chunks = 1\n"
+        "part.run()\n"
+        f"res = Aggregator(config={cfg_path!r}, outputs_dir={out + '-resumed'!r}, "
+        "device='cpu')\n"
+        "res.run()\n"
+        "print('RESUMED', part.timestep, res.resumed_from is not None, res.timestep)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
         "print('LOADED', bad)\n")
-    # The shipped example config, cut to 3 homes × 3 steps, with the
-    # telemetry this package does not have yet turned off.
+    # The shipped example config, cut to 3 homes × 3 hourly chunks, with
+    # the telemetry this package does not have yet turned off and resume on.
     toml = open(os.path.join(REPO, "data", "config.example.toml")).read()
     for a, b in (("total_number_homes = 10", "total_number_homes = 3"),
                  ("homes_pv = 4", "homes_pv = 1"),
                  ('end_datetime = "2015-01-04 00"', 'end_datetime = "2015-01-01 03"'),
+                 ('checkpoint_interval = "daily"',
+                  'checkpoint_interval = "hourly"\nresume = true'),
                  ("[telemetry]\nenabled = true", "[telemetry]\nenabled = false"),
                  ("per_home = true", "per_home = false")):
         assert a in toml, a
@@ -100,8 +115,10 @@ def test_cpu_run_loads_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "LOADED []" in out.stdout
-    assert os.path.exists(os.path.join(out.stdout.splitlines()[-2], "baseline", "results.json"))
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "LOADED []"
+    assert lines[-2] == "RESUMED 1 True 3"
+    assert os.path.exists(os.path.join(lines[-3], "baseline", "results.json"))
 
 
 def test_default_device_needs_cuda(tmp_path):
@@ -117,9 +134,37 @@ def test_default_device_needs_cuda(tmp_path):
     ("fleet", "communities", 2),
     ("scenarios", "pack", "dr_heavy"),
     ("agg", "spp_enabled", True),
+    ("fleet", "community_base", 2),
 ])
 def test_out_of_slice_settings_raise(tmp_path, section, key, value):
     cfg = _day_config()
     cfg[section][key] = value
+    if key == "community_base":
+        # A base shifts the weather window only together with an offset.
+        cfg["fleet"]["weather_offset_hours"] = 24
     with pytest.raises(NotImplementedError, match=f"{section}.{key}"):
         Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+
+
+def test_community_base_without_offset_matches_jax(tmp_path):
+    """A community base alone renames and reseeds the community (its homes
+    are the JAX package's) and keeps the weather window: 6 homes, 8 steps,
+    the series within 1e-4 of the JAX aggregator's."""
+    cfg = _day_config()
+    cfg["simulation"]["end_datetime"] = "2015-01-01 08"
+    cfg["fleet"].update(community_base=2, weather_offset_hours=0)
+    ja = JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))
+    ja.run()
+    ta = Aggregator(config=cfg, outputs_dir=str(tmp_path / "torch"), device="cpu")
+    ta.run()
+    rj, rt = _results(ja), _results(ta)
+    assert list(rt) == list(rj)
+    assert all(name.startswith("c2-") for name in rj if name != "Summary")
+    for name, series in rj.items():
+        if name == "Summary":
+            continue
+        for key, v in series.items():
+            if isinstance(v, list):
+                np.testing.assert_allclose(rt[name][key], v, rtol=0, atol=1e-4,
+                                           err_msg=f"{name}.{key}")
+        assert rt[name]["correct_solve"] == series["correct_solve"]

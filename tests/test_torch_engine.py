@@ -84,7 +84,6 @@ def test_restart_from_jax_state():
 
 @pytest.mark.parametrize("section,key,value", [
     ("home", "hems", {"solver": "admm"}),
-    ("tpu", "integer_repair", "resolve"),
     ("tpu", "band_kernel", "cr"),
     ("telemetry", "per_home", True),
 ])
