@@ -57,6 +57,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    repair failures and launch counts (more a step than project mode's);
 11. ``band_kernel = "xla"``: 1,000 homes × 2 IPM steps launch no band
    kernel and give the kernel route's bits;
+12. the RL cases: the baseline over 48 hourly steps, then ``run_rl_agg``
+   on the 10,000-home community, H = 24, the same 48 steps in daily
+   chunks, the linear agent through the IPM's split route (solve rate ≥
+   0.99 on day 1 and no more than 0.01 below the baseline's over the 48
+   steps, the reward price finite, within ±max_rp and not constant, the
+   ridge refit running from step 34), the same run
+   stopped after its first chunk and resumed bit for bit (results.json,
+   the price, rl_data); the DDPG agent through the fused band route (its
+   actor frozen to step 31, then moving); ReLU-QP through the fused window
+   for 6 steps; one agent step's time and launches; 8 homes × 12 steps on
+   the CPU against the card, step by step (the price and the agent within
+   the CPU tests' tolerances, the community's series within phase 4's),
+   and ``run_rl_simplified`` over 3 days on both, within the CPU tests'
+   tolerances;
 
 then prints the kernels JSON line, the card line and, last, the result
 line.  Per-shape details go to chiprun_out/chip_smoke.json.
@@ -365,7 +379,7 @@ def cpu_vs_cuda_check(**tpu) -> None:
             if isinstance(v, list):
                 worst = max(worst, float(np.max(np.abs(
                     np.asarray(v) - np.asarray(res["cuda"][name][key])))))
-    check(worst < 1e-2, f"CPU vs CUDA engine series differ by {worst} ({tpu})")
+    check(worst < ENGINE_CPU_CUDA_ATOL, f"CPU vs CUDA engine series differ by {worst} ({tpu})")
     log(f"CPU vs CUDA engine check {tpu}: max |difference| {worst:.3g}")
 
 
@@ -476,9 +490,10 @@ def drive(outputs_dir: str, solver: str = "ipm", **tpu):
     return agg, results, launches, seconds
 
 
-def check_results(res: dict) -> tuple[dict, list]:
-    """Every home's series in results.json has the reference's length and
-    is finite; returns (Summary, per-home solved series)."""
+def check_results(res: dict, steps: int = 24) -> tuple[dict, list]:
+    """Every home's series in results.json has the reference's length over
+    ``steps`` steps and is finite; returns (Summary, per-home solved
+    series)."""
     import numpy as np
 
     summary = res.pop("Summary")
@@ -488,7 +503,7 @@ def check_results(res: dict) -> tuple[dict, list]:
         for key, v in series.items():
             if isinstance(v, list):
                 a = np.asarray(v, dtype=np.float64)
-                want = 25 if key in ("temp_in_opt", "temp_wh_opt", "e_batt_opt") else 24
+                want = steps + (key in ("temp_in_opt", "temp_wh_opt", "e_batt_opt"))
                 check(a.shape == (want,) and np.all(np.isfinite(a)),
                       f"{name}.{key}: shape {a.shape} or non-finite values")
         solved.append(series["correct_solve"])
@@ -693,12 +708,12 @@ def hourly_drive(outputs_dir: str, steps: int, solver: str = "ipm", stop=None,
 
 
 def same_results(got: dict, want: dict, what: str) -> None:
-    """Every per-home series and the aggregates of two results.json bit for
-    bit (JSON keeps float64 exactly)."""
+    """Every per-home series and the aggregates (the reward price among
+    them) of two results.json bit for bit (JSON keeps float64 exactly)."""
     check(list(got) == list(want), f"{what}: different homes")
     for name, series in want.items():
         if name == "Summary":
-            for key in ("p_grid_aggregate", "p_grid_setpoint", "solver_iterations"):
+            for key in ("p_grid_aggregate", "p_grid_setpoint", "solver_iterations", "RP"):
                 check(got[name][key] == series[key], f"{what}: Summary.{key} differs")
             continue
         for key, v in series.items():
@@ -874,6 +889,309 @@ def xla_route_check() -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- RL cases
+RL_STEPS = 48          # two daily chunks, past the ridge refit's first step (34)
+RL_RELUQP_STEPS = 6
+RL_CHECK_STEPS = 12    # CPU against the card: 8 homes, 4 h horizon
+RL_SIMPLIFIED_END = "2015-01-04 00"  # a 3-day window
+MAX_RP = 0.02          # agg.rl.max_rp (the default)
+# The CPU tests' tolerances for the port against the JAX package
+# (tests/test_torch_rl_runner.py): the reward price 1e-6, the simplified
+# Summary 1e-5 and the agent's series 1e-4 of their largest magnitude.
+# The community's series are held, the CPU against the card, to
+# cpu_vs_cuda_check's 1e-2: the interior point on the two devices
+# (float32 square roots rounded differently on the CPU) stops at
+# different points of its 2e-4 tolerance, ~1e-3 apart at a step.
+RL_RP_ATOL, RL_SIMPLIFIED_REL, RL_AGENT_REL = 1e-6, 1e-5, 1e-4
+ENGINE_CPU_CUDA_ATOL = 1e-2
+
+
+def rl_config(n_homes: int, horizon: int, steps: int, agent: str = "linear",
+              solver: str = "ipm", bucketed: str = "auto", case: str = "rl_agg",
+              **tpu) -> dict:
+    """The mixed community running only ``case`` (``run_rl_agg``, or the
+    baseline), ``steps`` hourly steps from 2015-01-01 00."""
+    from datetime import datetime, timedelta
+
+    end = (datetime(2015, 1, 1) + timedelta(hours=steps)).strftime("%Y-%m-%d %H")
+    cfg = community_config(n_homes, horizon, end, bucketed=bucketed, **tpu)
+    cfg["home"]["hems"]["solver"] = solver
+    cfg["simulation"].update(run_rbo_mpc=case == "baseline", run_rl_agg=case == "rl_agg")
+    cfg["rl"]["parameters"]["agent"] = agent
+    return cfg
+
+
+def rl_drive(outputs_dir: str, steps: int = RL_STEPS, agent: str = "linear",
+             solver: str = "ipm", stop=None, resume: bool = False, case: str = "rl_agg",
+             **tpu) -> dict:
+    """One ``run_rl_agg`` (or, ``case="baseline"``, the baseline) of the
+    10,000-home community in daily chunks through the public entry point,
+    every launch count reset just before it and read just after; ``stop``
+    stops it after that many chunks, ``resume`` restores the latest
+    checkpoint."""
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    cfg = rl_config(N_HOMES, MAIN_HORIZON, steps, agent, solver, case=case, **tpu)
+    cfg["simulation"]["resume"] = resume
+    agg = Aggregator(cfg, outputs_dir=outputs_dir, device="cuda")
+    agg.stop_after_chunks = stop
+    reset_launches()
+    t0 = time.perf_counter()
+    agg.run()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    case_dir = os.path.join(agg.run_dir, case)
+    with open(os.path.join(case_dir, "results.json")) as f:
+        results = json.load(f)
+    rl_data = None
+    if os.path.exists(os.path.join(case_dir, "utility_agent-results.json")):
+        with open(os.path.join(case_dir, "utility_agent-results.json")) as f:
+            rl_data = json.load(f)
+    return dict(agg=agg, results=results, launches=launches, run_s=run_s, rl_data=rl_data)
+
+
+def rl_checks(run: dict, steps: int, what: str, priced: bool = True) -> dict:
+    """Every home's series complete and finite; for a ``priced`` (RL) run
+    the reward price finite, within ±max_rp and not constant (the agent
+    acted).  Returns the run's figures."""
+    import numpy as np
+
+    summary, solved = check_results(dict(run["results"]), steps)
+    rp = np.asarray(summary["RP"])
+    check(rp.shape == (steps,) and bool(np.all(np.isfinite(rp))), f"{what}: RP not finite")
+    check(bool(np.all(np.abs(rp) <= MAX_RP + 1e-9)), f"{what}: RP beyond ±{MAX_RP}: {rp}")
+    check(not priced or len(np.unique(rp)) > 1, f"{what}: RP constant, the agent did not act")
+    phase = summary["phase_times"]
+    solved = np.asarray(solved)
+    return dict(homes=N_HOMES, steps=steps, solve_rate=float(np.mean(solved)),
+                solve_rate_day_1=float(np.mean(solved[:, :24])),
+                solve_rate_per_step=np.mean(solved, axis=0).tolist(),
+                rp_min=float(rp.min()), rp_max=float(rp.max()),
+                rp_distinct=int(len(np.unique(rp))),
+                s_per_step=(phase["device_chunks"] + phase["collect"]) / steps,
+                run_s=run["run_s"], launches=run["launches"],
+                launches_per_step={k: v / steps for k, v in run["launches"].items()},
+                mean_iterations=float(np.mean(summary["solver_iterations"])))
+
+
+def agent_step_figures(agent: str) -> dict:
+    """One agent step on the card alone (the 10,000-home run's
+    hyperparameters, 40 steps in so every update is live): milliseconds a
+    step over 20 steps between CUDA events, and kernel launches a step
+    from torch.profiler's count of the host's launch calls over 4 steps."""
+    import torch
+
+    from dragg_tpu_torch.rl.agent import UtilityAgent
+    from dragg_tpu_torch.rl.core import RLObservation
+
+    ag = UtilityAgent(rl_config(N_HOMES, MAIN_HORIZON, RL_STEPS, agent), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def obs(k):
+        v = 0.1 * torch.randn(5, device="cuda", generator=g)
+        return RLObservation(v[0], v[1], torch.full((), (k % 24) / 24, device="cuda"),
+                             0.02 * v[3], -v[4] * v[4])
+
+    carry = ag.carry
+    for k in range(40):
+        carry, _ = ag.scan_step(carry, obs(k))
+    observations = [obs(k) for k in range(40, 60)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for o in observations:
+        carry, _ = ag.scan_step(carry, o)
+    end.record()
+    torch.cuda.synchronize()
+    out = dict(agent=agent, ms_per_step=start.elapsed_time(end) / len(observations))
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for o in observations[:4]:
+                carry, _ = ag.scan_step(carry, o)
+            torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages() if "LaunchKernel" in e.key}
+        out["launches_per_step"] = sum(calls.values()) / 4
+        out["launch_calls"] = calls
+    except Exception as e:  # the launch count is a figure, not a check
+        out["launches_per_step"] = f"not measured ({type(e).__name__}: {e})"
+    log(f"agent step on the card ({agent}): " + json.dumps(out))
+    return out
+
+
+def rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
+    """8 homes, 4 h horizon, RL_CHECK_STEPS one-step chunks of run_rl_agg's
+    step (observe, agent step, price, community, tracker), the CPU and the
+    card each starting every step from the CPU run's carry (community,
+    agent, environment): the price and the agent within the CPU tests'
+    tolerances, the community's series within cpu_vs_cuda_check's."""
+    import numpy as np
+
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.checkpoint import host_snapshot, tree_map
+    from dragg_tpu_torch.rl.agent import UtilityAgent
+    from dragg_tpu_torch.rl.env import init_env_carry
+    from dragg_tpu_torch.rl.runner import _rl_settings, run_chunk
+
+    cfg = rl_config(8, 4, RL_CHECK_STEPS, agent, bucketed="true")
+    side = {}
+    for dev in ("cpu", "cuda"):
+        with tempfile.TemporaryDirectory() as d:
+            agg = Aggregator(cfg, outputs_dir=d, device=dev)
+            agg.get_homes()
+            agg._build_engine()
+        side[dev] = (agg.engine, UtilityAgent(cfg, device=dev))
+    settings, norm = _rl_settings(cfg), agg._max_possible_load()
+    carry = (side["cpu"][0].init_state(), side["cpu"][1].carry,
+             init_env_carry(8, settings["prev_n"], norm, "cpu"))
+    worst = {"rp": 0.0, "agent": 0.0, "series": {}}
+    for t in range(RL_CHECK_STEPS):
+        nxt, got = run_chunk(*side["cpu"], settings, norm, carry, t, 1)
+        _, got_c = run_chunk(*side["cuda"], settings, norm,
+                             tree_map(lambda a: a.to("cuda"), carry), t, 1)
+        (outs, recs, rp, _), (outs_c, recs_c, rp_c, _) = host_snapshot(got), host_snapshot(got_c)
+        check(np.array_equal(outs.correct_solve, outs_c.correct_solve),
+              f"RL CPU vs card ({agent}) t={t}: solved flags differ")
+        for f in outs._fields:
+            if np.asarray(getattr(outs, f)).dtype.kind == "f":
+                worst["series"][f] = max(worst["series"].get(f, 0.0), float(np.max(np.abs(
+                    getattr(outs, f) - getattr(outs_c, f)), initial=0.0)))
+        worst["rp"] = max(worst["rp"], float(np.max(np.abs(rp - rp_c))))
+        for a, b in zip(recs, recs_c):
+            worst["agent"] = max(worst["agent"], float(
+                np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-30)))
+        carry = nxt
+    check(max(worst["series"].values()) <= ENGINE_CPU_CUDA_ATOL and worst["rp"] <= RL_RP_ATOL
+          and worst["agent"] <= RL_AGENT_REL,
+          f"RL CPU vs card ({agent}): differences {worst} beyond the tolerances")
+    log(f"RL CPU vs card, step by step ({agent}, 8 homes, H = 4): " + json.dumps(worst))
+    return worst
+
+
+def rl_simplified_check() -> dict:
+    """``run_rl_simplified`` over a 3-day window (72 steps, 10,000 homes'
+    normalizer), the card against the CPU: the Summary's series and the
+    agent's within the CPU tests' tolerances."""
+    import numpy as np
+
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    out, seconds = {}, {}
+    for dev in ("cpu", "cuda"):
+        cfg = community_config(N_HOMES, MAIN_HORIZON, RL_SIMPLIFIED_END)
+        cfg["simulation"].update(run_rbo_mpc=False, run_rl_simplified=True)
+        with tempfile.TemporaryDirectory() as d:
+            agg = Aggregator(cfg, outputs_dir=d, device=dev)
+            t0 = time.perf_counter()
+            agg.run()
+            seconds[dev] = time.perf_counter() - t0
+            case = os.path.join(agg.run_dir, "simplified")
+            with open(os.path.join(case, "results.json")) as f:
+                res = json.load(f)
+            with open(os.path.join(case, "utility_agent-results.json")) as f:
+                out[dev] = (res, json.load(f))
+    (res, data), (res_c, data_c) = out["cpu"], out["cuda"]
+    check(list(res_c) == ["Summary"], f"simplified results.json holds {list(res_c)}")
+    worst = {}
+    for key, tol, a, b in (
+            *((k, RL_SIMPLIFIED_REL, res["Summary"][k], res_c["Summary"][k])
+              for k in ("p_grid_aggregate", "RP", "p_grid_setpoint", "agg_cost")),
+            *((k, RL_AGENT_REL, data[k], data_c[k]) for k in data if k != "parameters")):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(a.shape == b.shape and a.shape[0] == 72, f"simplified {key}: shape {b.shape}")
+        worst[key] = float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-30))
+        check(worst[key] <= tol, f"simplified, card vs CPU: {key} differs by {worst[key]:.3g}")
+    stats = dict(steps=72, rel_differences=worst, run_s_cpu=seconds["cpu"],
+                 run_s_cuda=seconds["cuda"])
+    log("RL simplified, card vs CPU: " + json.dumps(stats))
+    return stats
+
+
+def rl_phase(outputs_dir: str, baseline: dict) -> dict:
+    """The RL aggregator on the card: the 10,000-home community, H = 24, 48
+    hourly steps in daily chunks, first the baseline, then through the
+    IPM's split route with the linear agent (the ridge refit from step 34 on), the same run stopped
+    after its first chunk and resumed, bit-equal; the DDPG agent through
+    the fused band route (its actor frozen until step 32); ReLU-QP through
+    the fused window for 6 steps; one agent step's time and launches; 8
+    homes step by step on the CPU against the card; the simplified case
+    on both.  ``baseline`` is the baseline main path's figures."""
+    import numpy as np
+
+    # The baseline over the same 48 steps: day 2 (2015-01-02) holds homes
+    # that no controller keeps in their comfort band, so the MPC's quality
+    # is held at 0.99 on day 1 and, over both days, against the baseline's.
+    base = rl_checks(rl_drive(os.path.join(outputs_dir, "rl-base"), case="baseline"),
+                     RL_STEPS, "baseline (48 steps)", priced=False)
+    log("baseline (10,000 homes, 48 steps): " + json.dumps(base))
+    main = rl_drive(os.path.join(outputs_dir, "rl"))
+    lin = rl_checks(main, RL_STEPS, "rl_agg (linear)")
+    check(lin["solve_rate_day_1"] >= 0.99,
+          f"rl_agg (linear): day-1 solve rate {lin['solve_rate_day_1']}")
+    check(lin["solve_rate"] >= base["solve_rate"] - 0.01,
+          f"rl_agg (linear): solve rate {lin['solve_rate']} below the baseline's "
+          f"{base['solve_rate']} over the same steps")
+    ln = main["launches"]
+    check(ln["banded_cholesky_t"] > 0 and ln["refined_banded_solve_t"] > 0
+          and ln["factor_refined_solve_t"] == 0 and ln[WINDOW] == 0,
+          f"rl_agg (linear) did not run the split route's kernels alone: {ln}")
+    # Column i of θ_q recorded at step k is column (k + 1) mod 2; the
+    # ridge refit first fires at step 33 (post-increment t - 1 > 32).
+    tq = np.asarray(main["rl_data"]["theta_q"])
+    check(np.array_equal(tq[31], tq[1]) and np.array_equal(tq[32], tq[0]),
+          "rl_agg (linear): θ_q moved before the ridge refit's first step")
+    change = [float(np.max(np.abs(tq[47] - tq[31]))), float(np.max(np.abs(tq[46] - tq[32])))]
+    check(min(change) > 0, f"rl_agg (linear): the ridge refit did not run ({change})")
+    lin.update(theta_q_change_after_step_34=change,
+               baseline_launches_per_step=base["launches_per_step"],
+               baseline_main_path_launches_per_step={
+                   k: baseline["launches_split"][k] / 24
+                   for k in ("banded_cholesky_t", "refined_banded_solve_t")})
+    log("rl_agg (linear, 10,000 homes, 48 steps): " + json.dumps(lin))
+
+    part = rl_drive(os.path.join(outputs_dir, "rl-res"), stop=1)
+    check(part["agg"].timestep == 24 and part["agg"]._latest_checkpoint_dir() is not None,
+          "rl_agg stopped after one chunk left no checkpoint")
+    res = rl_drive(os.path.join(outputs_dir, "rl-res"), resume=True)
+    check(res["agg"].resumed_from is not None, "rl_agg did not resume")
+    same_results(res["results"], main["results"], "rl_agg stopped and resumed")
+    check(res["rl_data"] == main["rl_data"], "rl_agg resumed: rl_data differs")
+    resume = {what: dict(run_s=run["run_s"], launches=run["launches"])
+              for what, run in (("stopped", part), ("resumed", res))}
+    log("rl_agg stopped after chunk 1 and resumed: bit-equal; " + json.dumps(resume))
+
+    dd = rl_drive(os.path.join(outputs_dir, "rl-ddpg"), agent="ddpg", band_fused=True)
+    ddpg = rl_checks(dd, RL_STEPS, "rl_agg (DDPG)")
+    check(ddpg["solve_rate_day_1"] >= 0.99 and ddpg["solve_rate"] >= base["solve_rate"] - 0.01,
+          f"rl_agg (DDPG): solve rate {ddpg['solve_rate']}, day 1 {ddpg['solve_rate_day_1']}")
+    ln = dd["launches"]
+    check(ln["factor_refined_solve_t"] > 0 and ln["banded_cholesky_t"] == 0,
+          f"rl_agg (DDPG) did not run the fused route: {ln}")
+    norms = dd["rl_data"]["theta_mu"]  # the actor's parameter norm, step by step
+    check(len(set(norms[:32])) == 1 and norms[47] != norms[31],
+          f"rl_agg (DDPG): the actor's norm {norms[30:34]} … {norms[47]} (frozen to step "
+          f"31, then moving)")
+    ddpg["actor_norm_change_after_step_32"] = abs(norms[47] - norms[31])
+    log("rl_agg (DDPG, fused band route, 10,000 homes, 48 steps): " + json.dumps(ddpg))
+
+    rq = rl_drive(os.path.join(outputs_dir, "rl-reluqp"), RL_RELUQP_STEPS, solver="reluqp",
+                  iter_kernel="pallas", precision="f32")
+    reluqp = rl_checks(rq, RL_RELUQP_STEPS, "rl_agg (ReLU-QP)")
+    ln = rq["launches"]
+    check(ln[WINDOW] > 0 and all(v == 0 for k, v in ln.items() if k != WINDOW),
+          f"rl_agg (ReLU-QP) did not run the fused window alone: {ln}")
+    log("rl_agg (ReLU-QP, fused window, 10,000 homes, 6 steps): " + json.dumps(reluqp))
+
+    agent_steps = {a: agent_step_figures(a) for a in ("linear", "ddpg")}
+    for stats, a in ((lin, "linear"), (ddpg, "ddpg")):
+        stats["agent_step_share"] = agent_steps[a]["ms_per_step"] / 1e3 / stats["s_per_step"]
+    stepwise = {a: rl_stepwise_cpu_vs_cuda(a) for a in ("linear", "ddpg")}
+    return dict(baseline=base, linear=lin, resume=resume, ddpg=ddpg, reluqp=reluqp,
+                agent_step=agent_steps,
+                cpu_vs_cuda=stepwise, simplified=rl_simplified_check())
+
+
 def main() -> int:
     import torch
 
@@ -933,10 +1251,18 @@ def main() -> int:
         resume = resume_pipeline_phase(d)
         resolve = resolve_phase(d)
         xla = xla_route_check()
+        rl = rl_phase(d, stats)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
                 "factor_refined_solve_t": stats["launches_fused"]["factor_refined_solve_t"]}
+    # run_rl_agg: the band kernels from the linear agent's split-route run,
+    # the fused kernel from the DDPG run's fused route, the window from
+    # the ReLU-QP run.
+    launches_rl = {"banded_cholesky_t": rl["linear"]["launches"]["banded_cholesky_t"],
+                   "refined_banded_solve_t": rl["linear"]["launches"]["refined_banded_solve_t"],
+                   "factor_refined_solve_t": rl["ddpg"]["launches"]["factor_refined_solve_t"],
+                   WINDOW: rl["reluqp"]["launches"][WINDOW]}
     entries = []
     main_rows = [r for r in kern["per_shape"] if r["horizon"] == MAIN_HORIZON]
     floor_rows = [r for r in kern["one_block"] if r["horizon"] == MAIN_HORIZON]
@@ -964,6 +1290,7 @@ def main() -> int:
             # integer_repair = "resolve", 10,000 homes × RESOLVE_STEPS steps
             # (the fused kernel does not run on the default split route).
             launches_resolve=resolve["ipm"]["resolve"]["launches"][name],
+            launches_rl=launches_rl[name],
         ))
     rows = win["per_shape"]
     t_bytes = sum(r["bound_bytes_ms"] for r in rows)
@@ -979,6 +1306,7 @@ def main() -> int:
         library="the port's iter_kernel='lax' route, the plain version (a batched "
                 "einsum chain): no single PyTorch call computes the window",
         launches_resolve=resolve["reluqp"]["resolve"]["launches"][WINDOW],
+        launches_rl=launches_rl[WINDOW],
         shapes=[[r["bucket"], r["m"], r["n"], r["B"]] for r in rows],
     ))
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
@@ -987,7 +1315,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kern, "window": win, "window_h48": win48,
                    "main_path": stats, "main_path_reluqp": rstats, "routes": routes,
                    "routes_h48": routes48, "resume_pipeline": resume, "resolve": resolve,
-                   "band_kernel_xla": xla}, f, indent=1)
+                   "band_kernel_xla": xla, "rl": rl}, f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ Config + weather + price ingestion, seeded home synthesis (with the
 ``all_homes-<N>-config.json`` cache), the baseline simulation loop as
 chunks of engine steps with a resumable checkpoint at every chunk
 boundary, per-home data collection, the utility setpoint, and
-results.json in the reference's directory layout.
+results.json in the reference's directory layout.  The RL cases
+(``simulation.run_rl_agg``, ``run_rl_simplified``) run after the
+baseline, through :mod:`dragg_tpu_torch.rl.runner`.
 
 The chunk loop is a two-slot host pipeline (``fleet.pipeline``, default
 on): once chunk N has run, its outputs and the state after it are copied
@@ -14,8 +16,7 @@ results.json and writes the checkpoint while the main thread drives chunk
 N+1 on the card.  ``simulation.resume = true`` restores the latest
 checkpoint.
 
-Only the baseline case (``simulation.run_rbo_mpc``) of one community runs
-here; the RL cases, fleets, telemetry and the sharded mesh raise
+One community runs here; fleets, telemetry and the sharded mesh raise
 NotImplementedError naming their config key.
 """
 
@@ -36,6 +37,7 @@ from dragg_tpu_torch.checkpoint import (
     load_progress,
     load_pytree,
     save_checkpoint_dir,
+    save_progress,
     tree_flatten,
     tree_unflatten,
 )
@@ -82,15 +84,13 @@ _BATT_KEYS = {"e_batt_opt": "e_batt", "p_batt_ch": "p_batt_ch", "p_batt_disch": 
 # Config switches this package does not run yet: (section, key, value
 # that is in the slice).
 _OUT_OF_SLICE = (
-    ("simulation", "run_rl_agg", False),
-    ("simulation", "run_rl_simplified", False),
     ("telemetry", "enabled", False),
     ("tpu", "profile_dir", ""),
 )
 
 
 class Aggregator:
-    """Drop-in analog of the JAX package's Aggregator for the baseline run.
+    """Drop-in analog of the JAX package's Aggregator for one community.
 
     Parameters
     ----------
@@ -159,7 +159,9 @@ class Aggregator:
         self.forecast_load = 0.0
         self.start_time = None
         self.end_time = None
-        self.extra_summary: dict = {}
+        self.extra_summary: dict = {}  # case-specific Summary additions
+        self.summary_only_case = False  # results.json without per-home blocks
+        self.agent = None  # the RL agent of the last RL case run
         self.collector: SeriesCollector | None = None
         self._home_static: dict = {}
         self.version = self.config["simulation"].get("named_version", "test")
@@ -257,9 +259,12 @@ class Aggregator:
         for key, arr in init.items():
             self.collector.add_chunk(key, arr)
 
-    def _collect_chunk(self, outs: StepOutputs) -> None:
+    def _collect_chunk(self, outs: StepOutputs, track_setpoints: bool = True) -> None:
         """Append a chunk of stacked step outputs, host arrays, to the
-        series store, then track the setpoint per step."""
+        series store, then track the setpoint per step.
+        ``track_setpoints=False`` skips the host's ``gen_setpoint``: the RL
+        aggregator tracks the setpoint on the device and writes ``all_sps``
+        itself."""
         host = outs._asdict()
         n_steps = host["p_grid"].shape[0]
         for out_key, field in (*_BASE_KEYS.items(), *_PV_KEYS.items(),
@@ -284,9 +289,10 @@ class Aggregator:
             self.forecast_load = float(host["forecast_load"][k])
             self.agg_cost = float(host["agg_cost"][k])
             self.timestep += 1
-            self.agg_setpoint = self.gen_setpoint()
-            if self.timestep < self.num_timesteps:
-                self.all_sps[self.timestep] = self.agg_setpoint
+            if track_setpoints:
+                self.agg_setpoint = self.gen_setpoint()
+                if self.timestep < self.num_timesteps:
+                    self.all_sps[self.timestep] = self.agg_setpoint
 
     def _log_home_failures(self, correct_solve: np.ndarray) -> None:
         """One ``home_logs/<name>.log`` per home that fell back, appended
@@ -336,16 +342,20 @@ class Aggregator:
     def _checkpoint_root(self) -> str:
         return os.path.join(self.run_dir, self.case, "checkpoint")
 
-    def save_checkpoint(self, state) -> None:
-        """Persist the engine state after the chunk just collected and the
-        host bookkeeping, so the run can resume here: one versioned
-        directory (state.npz, collected.json, progress.json) published
-        through ``LATEST`` (``checkpoint.save_checkpoint_dir``).
+    def save_checkpoint(self, state, extra_json: dict | None = None) -> None:
+        """Persist the carried state after the chunk just collected (the
+        engine's, or for an RL case the engine's, the agent's and the
+        environment's) and the host bookkeeping, so the run can resume
+        here: one versioned directory (state.npz, collected.json,
+        progress.json, and a JSON file for each ``extra_json`` entry)
+        published through ``LATEST`` (``checkpoint.save_checkpoint_dir``).
         results.json stays a user-facing output; a resume never reads it."""
-        save_checkpoint_dir(
-            self._checkpoint_root(), self.timestep, state, self._progress_dict(),
-            files={"collected.json": lambda path: self.collector.write_json(
-                path, self._results_plan(None))})
+        files = {"collected.json": lambda path: self.collector.write_json(
+            path, self._results_plan(None))}
+        for name, obj in (extra_json or {}).items():
+            files[name] = lambda path, obj=obj: save_progress(path, obj)
+        save_checkpoint_dir(self._checkpoint_root(), self.timestep, state,
+                            self._progress_dict(), files=files)
 
     def _progress_dict(self) -> dict:
         return {
@@ -377,9 +387,13 @@ class Aggregator:
         config change between runs starts afresh instead of failing later
         in a shape check.  Event timelines, fleet RL and several processes
         are not in this package, so ``events`` and ``rl_fleet`` are None and
-        ``process_count`` is 1."""
+        ``process_count`` is 1.  An RL case adds ``rl``, what sizes its
+        agent's and environment's carries (the core, its critic count or
+        width, the setpoint window), a key the JAX package does not write:
+        a config change there starts afresh too, where the JAX package's
+        single-community run would fail in the leaf check."""
         eng = self.engine
-        return {
+        shape = {
             "num_timesteps": self.num_timesteps,
             "n_homes": len(self.all_homes),
             "communities": 1,
@@ -395,6 +409,14 @@ class Aggregator:
             "rl_fleet": None,
             "process_count": 1,
         }
+        if self.case == "rl_agg":
+            p = self.config["rl"]["parameters"]
+            kind = str(p.get("agent", "linear"))
+            core_shape = (int(self.config.get("tpu", {}).get("ddpg_hidden", 64))
+                          if kind == "ddpg" else (2 if p.get("twin_q", True) else 1))
+            shape["rl"] = [kind, core_shape,
+                           int(self.config["agg"].get("rl", {}).get("prev_timesteps", 12))]
+        return shape
 
     def try_resume(self, template_state):
         """(state, t) from the latest complete checkpoint when
@@ -574,7 +596,8 @@ class Aggregator:
             "RP": self.all_rps.tolist(),
             "p_grid_setpoint": self.all_sps.tolist(),
             "solver_iterations": list(self._solve_iters),
-            "phase_times": {k: round(v, 3) for k, v in self._phase_times.items()},
+            "phase_times": {k: round(v, 3) for k, v in
+                            getattr(self, "_phase_times", {}).items()},
             "TOU": self.env.tou[sim_slice].tolist(),
         }
         summary.update(self.extra_summary)
@@ -615,11 +638,19 @@ class Aggregator:
 
     def write_outputs(self) -> None:
         """Per-home series + Summary → <run_dir>/<case>/results.json
-        (dragg/aggregator.py:831-844)."""
+        (dragg/aggregator.py:831-844); only the Summary when the case has no
+        community (``summary_only_case``, the simplified RL case)."""
+        summary = self.summarize_baseline()
         case_dir = os.path.join(self.run_dir, self.case)
         os.makedirs(case_dir, exist_ok=True)
-        self.collector.write_json(os.path.join(case_dir, "results.json"),
-                                  self._results_plan(self.summarize_baseline()))
+        path = os.path.join(case_dir, "results.json")
+        if self.all_homes is not None and not self.summary_only_case:
+            self.collector.write_json(path, self._results_plan(summary))
+        else:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"Summary": summary}, f, indent=4)
+            os.replace(tmp, path)
 
     def _checkpoint_steps(self) -> int:
         """hourly/daily/weekly → timesteps per chunk (dragg/aggregator.py:949-955)."""
@@ -631,23 +662,39 @@ class Aggregator:
         }.get(interval, 500)
 
     def run(self) -> None:
-        """Entry point: the baseline case (``simulation.run_rbo_mpc``)."""
+        """Entry point (dragg/aggregator.py:941-970): the enabled cases in
+        the reference's order, the baseline (``simulation.run_rbo_mpc``),
+        then the RL aggregator (``run_rl_agg``) and the RL agent against
+        the simplified community (``run_rl_simplified``)."""
         self.log.logger.info("Made it to Aggregator Run")
         self.checkpoint_interval = self._checkpoint_steps()
         self.version = self.config["simulation"].get("named_version", "test")
         self.set_run_dir()
-        if self.config["simulation"].get("run_rbo_mpc", True):
+        sim = self.config["simulation"]
+        if sim.get("run_rbo_mpc", True):
             self.case = "baseline"
             self.get_homes()
             self._build_engine()
             self.reset_collected_data()
             self.run_baseline()
-            if self.timestep >= self.num_timesteps:
-                self.check_baseline_vals()
-                self.write_outputs()
-                self.clear_checkpoint()
-            # Otherwise it stopped early at a chunk boundary, where
-            # results.json and the checkpoint were already written.
+            if self.timestep < self.num_timesteps:
+                # Stopped early at a chunk boundary, where results.json and
+                # the checkpoint were already written: behave as a kill and
+                # do not go on to the RL cases.
+                return
+            self.check_baseline_vals()
+            self.write_outputs()
+            self.clear_checkpoint()
+        if sim.get("run_rl_agg", False):
+            from dragg_tpu_torch.rl.runner import run_rl_agg
+
+            run_rl_agg(self)
+            if self.timestep < self.num_timesteps:
+                return  # stopped at a chunk boundary, as above
+        if sim.get("run_rl_simplified", False):
+            from dragg_tpu_torch.rl.runner import run_rl_simplified
+
+            run_rl_simplified(self)
 
 
 class _HostSlot:

@@ -7,9 +7,9 @@ mid-simulation bit for bit: the same chunk loop continues from the saved
 state.
 
 Format, as in the JAX package: one ``.npz`` with leaves named
-``leaf_0000``, ``leaf_0001``, … in flatten order — tuple order, then
-NamedTuple field order, which is the order ``jax.tree_util.tree_flatten``
-gives the JAX package's carry.  Loading needs a template tree of the same
+``leaf_0000``, ``leaf_0001``, … in flatten order — tuple order,
+NamedTuple field order and sorted dict keys, which is the order
+``jax.tree_util.tree_flatten`` gives the JAX package's carry.  Loading needs a template tree of the same
 structure (an engine can always rebuild its initial state), so the file
 holds no structure and no pickle.  A versioned checkpoint is a
 ``ckpt_t<timestep>`` directory (state.npz, progress.json and the caller's
@@ -29,8 +29,13 @@ import torch
 
 # ------------------------------------------------------------- tree walk
 def tree_flatten(tree) -> tuple[list, object]:
-    """(leaves, structure) of a tree of nested tuples and NamedTuples whose
-    leaves are tensors or arrays."""
+    """(leaves, structure) of a tree of nested tuples, NamedTuples and dicts
+    (in sorted key order, as JAX flattens a dict) whose leaves are tensors
+    or arrays."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        leaves, structure = tree_flatten(tuple(tree[k] for k in keys))
+        return leaves, (dict, keys, structure)
     if isinstance(tree, tuple):
         leaves, specs = [], []
         for sub in tree:
@@ -46,6 +51,9 @@ def tree_unflatten(structure, leaves):
     if structure is None:
         (leaf,) = leaves
         return leaf
+    if structure[0] is dict:
+        _, keys, sub = structure
+        return dict(zip(keys, tree_unflatten(sub, leaves)))
     kind, specs = structure
     parts, i = [], 0
     for count, spec in specs:

@@ -143,8 +143,8 @@ _DEFAULT: dict[str, Any] = {
         "load_zone": "LZ_HOUSTON",
         "check_type": "all",
         "run_rbo_mpc": True,
-        "run_rl_agg": False,         # RL cases: not ported
-        "run_rl_simplified": False,
+        "run_rl_agg": False,         # the RL aggregator over the MPC community
+        "run_rl_simplified": False,  # the RL agent against the linear model
         "checkpoint_interval": "daily",  # steps per chunk: hourly|daily|weekly
         "named_version": "test",
     },
@@ -220,7 +220,8 @@ _DEFAULT: dict[str, Any] = {
             "solver": "ipm",
         },
     },
-    # RL agents and their fleet training: not ported.
+    # The RL price-signal agent (one community; fleet training, rl.fleet,
+    # is not ported and matters only with fleets).
     "rl": {
         "utility": {"action_space": [-0.02, 0.02]},
         "parameters": {

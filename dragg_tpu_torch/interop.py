@@ -2,7 +2,8 @@
 x64-off ``jnp.asarray`` casts: float64 → float32, int64 → int32.  uint32
 PRNG key words become int64 (torch has no full uint32 arithmetic; see
 ``rng.py``).  Starting both packages from identical state mid-run (the
-parity tests) goes through these."""
+parity tests) goes through these: the engine's carry, and the RL agents'
+and environment's."""
 
 from __future__ import annotations
 
@@ -35,3 +36,52 @@ def community_state_from_numpy(fields: dict, device):
 
     return CommunityState(**{k: to_tensor(fields[k], device)
                              for k in CommunityState._fields})
+
+
+def agent_carry_from_numpy(fields: dict, device):
+    """A linear ``AgentCarry._asdict()`` of numpy arrays → an AgentCarry of
+    tensors."""
+    from dragg_tpu_torch.rl.core import AgentCarry
+
+    return AgentCarry(**{k: to_tensor(fields[k], device) for k in AgentCarry._fields})
+
+
+def _net_from_flax(variables: dict, device) -> dict:
+    """flax's ``{"params": {"Dense_i": {"kernel": (in, out), "bias"}}}`` →
+    the port's ``nn.Linear`` weights ``{"l<i>.weight": (out, in),
+    "l<i>.bias"}``."""
+    layers = variables["params"]
+    out = {}
+    for i in range(len(layers)):
+        dense = layers[f"Dense_{i}"]
+        out[f"l{i}.bias"] = to_tensor(dense["bias"], device)
+        out[f"l{i}.weight"] = to_tensor(np.asarray(dense["kernel"]).T, device)
+    return out
+
+
+def ddpg_carry_from_numpy(fields: dict, device):
+    """A ``DDPGCarry._asdict()`` of numpy arrays (flax weights, Adam states
+    as ``(mu, nu, count)``) → a DDPGCarry of tensors, the weights and
+    their Adam moments in ``nn.Linear``'s layout."""
+    from dragg_tpu_torch.rl.neural import AdamState, DDPGCarry
+
+    nets = ("actor", "critic1", "critic2", "t_actor", "t_critic1", "t_critic2")
+    kw = {k: _net_from_flax(fields[k], device) for k in nets}
+    for k in ("opt_actor", "opt_critic1", "opt_critic2"):
+        mu, nu, count = fields[k]
+        kw[k] = AdamState(mu=_net_from_flax(mu, device), nu=_net_from_flax(nu, device),
+                          count=to_tensor(count, device))
+    for k in DDPGCarry._fields:
+        if k not in kw:
+            kw[k] = to_tensor(fields[k], device)
+    return DDPGCarry(**kw)
+
+
+def env_carry_from_numpy(fields: dict, device):
+    """An ``EnvCarry._asdict()`` of numpy arrays (its tracker a
+    one-field tuple) → an EnvCarry of tensors."""
+    from dragg_tpu_torch.rl.env import EnvCarry, SetpointTracker
+
+    kw = {k: to_tensor(fields[k], device) for k in EnvCarry._fields if k != "tracker"}
+    (tracked,) = fields["tracker"]
+    return EnvCarry(**kw, tracker=SetpointTracker(to_tensor(tracked, device)))

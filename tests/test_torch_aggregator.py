@@ -2,8 +2,8 @@
 on the CPU) against the JAX package's, on the tests/test_engine.py day-run
 community: results.json carries the same keys, and the same series to
 1e-4 absolute (two float32 solvers ~1e-5 apart; see test_torch_engine).
-Also: a CPU run of the port, resumed from a checkpoint too, loads neither
-jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
+Also: a CPU run of the port, resumed from a checkpoint too, and its RL
+cases (both agents) load neither jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
 card; settings outside the port raise; and a community base without a
 weather offset runs the JAX package's homes on its weather."""
 
@@ -96,6 +96,16 @@ def test_cpu_run_loads_no_jax(tmp_path):
         "device='cpu')\n"
         "res.run()\n"
         "print('RESUMED', part.timestep, res.resumed_from is not None, res.timestep)\n"
+        # The RL cases after the baseline: rl_agg (linear agent) and
+        # simplified, then rl_agg with the DDPG agent.
+        f"rl = Aggregator(config={cfg_path!r}, outputs_dir={out + '-rl'!r}, device='cpu')\n"
+        "rl.config['simulation'].update(run_rl_agg=True, run_rl_simplified=True)\n"
+        "rl.run()\n"
+        f"dd = Aggregator(config={cfg_path!r}, outputs_dir={out + '-ddpg'!r}, device='cpu')\n"
+        "dd.config['simulation'].update(run_rbo_mpc=False, run_rl_agg=True)\n"
+        "dd.config['rl']['parameters']['agent'] = 'ddpg'\n"
+        "dd.run()\n"
+        "print('RL', rl.agent.kind, dd.agent.kind, rl.timestep, dd.timestep)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -117,8 +127,15 @@ def test_cpu_run_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
     assert lines[-1] == "LOADED []"
-    assert lines[-2] == "RESUMED 1 True 3"
-    assert os.path.exists(os.path.join(lines[-3], "baseline", "results.json"))
+    assert lines[-2] == "RL linear ddpg 3 3"
+    assert lines[-3] == "RESUMED 1 True 3"
+    assert os.path.exists(os.path.join(lines[-4], "baseline", "results.json"))
+    base = str(tmp_path / "out")
+    rl_dir = lines[-4].replace(base, base + "-rl", 1)
+    for case in ("baseline", "rl_agg", "simplified"):
+        assert os.path.exists(os.path.join(rl_dir, case, "results.json")), case
+    for case in ("rl_agg", "simplified"):
+        assert os.path.exists(os.path.join(rl_dir, case, "utility_agent-results.json")), case
 
 
 def test_default_device_needs_cuda(tmp_path):
@@ -129,7 +146,7 @@ def test_default_device_needs_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("simulation", "run_rl_agg", True),
+    ("tpu", "profile_dir", "trace"),
     ("telemetry", "enabled", True),
     ("fleet", "communities", 2),
     ("scenarios", "pack", "dr_heavy"),

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions: the band kernels bit for bit (both round every multiply, add,
 divide and square root separately, in the same order), the fused ReLU-QP
-window to float32 sum-order rounding.
+window to float32 sum-order rounding; a short RL run through the band
+kernels.
 Marked ``cuda``: they skip without a CUDA device; run them on the GPU with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
@@ -130,3 +131,26 @@ def test_fused_window_matches_plain_version(card, m, n, B):
             assert torch.equal(a, b[3:17])
     torch.cuda.synchronize()
     assert ik.LAUNCHES == {"fused_window": 4}
+
+
+def test_rl_agg_launches_band_kernels(card, tmp_path):
+    """A short run_rl_agg on the card (8 homes, 4 h horizon, 3 steps, the
+    linear agent and the interior point's split route) goes through the
+    band kernels, and its reward price stays finite and within max_rp."""
+    import json
+    import math
+    import os
+
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.config import mixed_community_config
+
+    cfg = mixed_community_config(8, 4, "2015-01-01 03")
+    cfg["simulation"].update(run_rbo_mpc=False, run_rl_agg=True)
+    bk.reset_launches()
+    agg = Aggregator(cfg, outputs_dir=str(tmp_path), device="cuda")
+    agg.run()
+    assert bk.LAUNCHES["banded_cholesky_t"] > 0 and bk.LAUNCHES["refined_banded_solve_t"] > 0
+    with open(os.path.join(agg.run_dir, "rl_agg", "results.json")) as f:
+        rp = json.load(f)["Summary"]["RP"]
+    assert len(rp) == 3 and all(math.isfinite(v) and abs(v) <= 0.02 + 1e-9 for v in rp)
+    assert agg.agent.carry.theta_q.device.type == "cuda"

@@ -1,8 +1,10 @@
 """The PyTorch port's threefry2x32 streams (dragg_tpu_torch/rng.py) against
-``jax.random``: keys, ``fold_in`` and raw bits bit for bit; normals within
-a few float32 ulps (XLA's and PyTorch's float32 ``log1p`` inside ``erf_inv``
-may round differently); and the engine's seasonal gate, which the noise
-decides, exactly."""
+``jax.random``: keys, ``fold_in`` and raw bits bit for bit; the engine's
+normals within a few float32 ulps (and, since the port follows XLA's CPU
+``erf_inv`` and ``log1p`` step for step, bit for bit); the engine's
+seasonal gate, which the noise decides, exactly; and the RL agents' draws
+(``split``, ``randint`` with a traced bound, scalar ``normal``,
+``truncated_normal`` and flax's lecun-normal kernels) bit for bit."""
 
 import numpy as np
 import jax
@@ -77,3 +79,61 @@ def test_seasonal_gate_is_exact():
         np.testing.assert_array_equal(gate_t, gate_j)
         flips += int(gate_j.sum())
     assert 0 < flips < 24 * N_HOMES  # the noise really decides some gates
+
+
+# ------------------------------------------------- the RL agents' draws
+def _agent_keys(n=500):
+    keys = jax.random.split(jax.random.PRNGKey(7), n)
+    return keys, torch.from_numpy(_words(keys))
+
+
+def test_split_is_bitwise():
+    keys, kt = _agent_keys(50)
+    for n in (2, 3, 4, 32):
+        want = _words(jax.vmap(lambda k: jax.random.split(k, n))(keys))
+        np.testing.assert_array_equal(rng.split(kt, n).numpy(), want)
+
+
+@pytest.mark.parametrize("maxval", [1, 33, 2048])
+def test_randint_traced_maxval_is_bitwise(maxval):
+    """randint(key, (32,), 0, maxval) with maxval a traced int32, as the
+    replay sampler draws it (dragg_tpu/rl/core.py:172)."""
+    keys, kt = _agent_keys()
+    draw = jax.jit(jax.vmap(lambda k, m: jax.random.randint(k, (32,), 0, m), (0, None)))
+    want = np.asarray(draw(keys, jnp.int32(maxval)))
+    got = rng.randint(kt, 32, 0, torch.tensor(maxval, dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.min() >= 0 and got.max() < maxval
+
+
+def test_normals_are_bitwise():
+    """Scalar draws (the agents' exploration noise, shape ()) and vector
+    draws equal jax.random.normal's bit for bit; a shape-() draw is
+    element 0 of a shape-(1,) draw."""
+    keys, kt = _agent_keys(4000)
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (), jnp.float32))(keys))
+    got = rng.normal(kt, 1)[:, 0].numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (64,), jnp.float32))(keys))
+    np.testing.assert_array_equal(rng.normal(kt, 64).numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_truncated_normal_and_lecun_are_bitwise():
+    """truncated_normal(-2, 2) and flax Dense's lecun-normal kernels with
+    flax's per-layer keys (the DDPG core's init, dragg_tpu/rl/neural.py:147-155)."""
+    from dragg_tpu.rl.neural import MLP
+
+    keys, kt = _agent_keys(2000)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.truncated_normal(k, -2.0, 2.0, (40,), jnp.float32))(keys))
+    got = rng.truncated_normal(kt, 40, -2.0, 2.0).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        params = MLP(hidden=64, out=1).init(key, jnp.zeros((5,), jnp.float32))["params"]
+        kt = torch.from_numpy(_words(key))
+        for i, (fan_in, fan_out) in enumerate(((5, 64), (64, 64), (64, 1))):
+            k = rng.flax_param_key(kt, f"Dense_{i}")
+            np.testing.assert_array_equal(rng.lecun_normal(k, fan_in, fan_out).numpy(),
+                                          np.asarray(params[f"Dense_{i}"]["kernel"]))
