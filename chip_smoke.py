@@ -27,7 +27,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    plain version, which is also the iter_kernel = "lax" route (the
    batched-einsum chain) and the yardstick; then the same at the four
    bucket shapes of a 48 h horizon (B = bucket and 1,001), two of them on
-   a 2-block cluster;
+   a 2-block cluster; then both at the six grid-block shapes (the buckets
+   of a 10,000-home community under the stress_dr_outage pack at H = 24,
+   whose grid events add the explicit p_grid block: bw 5 and 7, m 76 and
+   101, the refined solve of (101, 7) on 16-home blocks, the window of
+   m = 101 on its 512-thread shared-memory plan);
 4. correctness on small inputs: interior-point and ReLU-QP objectives
    within 1 % of HiGHS on a 16-home, 24 h community QP; an 8-home engine
    run on the card against the same run on the CPU, for each solver;
@@ -41,27 +45,27 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    fused window kernel), ``tpu.precision = "f32"``;
 7. kernel route against lax route on the card: a 1,000-home, 6-step
    ReLU-QP run both ways at a 4 h horizon, outputs equal under the
-   flip-aware assertion set, and at 24 h, its disagreement measured and
-   held to noise bounds (route_check);
+   flip-aware assertion set, and 3 steps at 24 h, its disagreement
+   measured and held to noise bounds (route_check);
 8. H = 48: a 1,000-home, 2-step ReLU-QP run through the fused window
    kernel (launch counts reset just before it), held against the lax
    route within route_check's H = 24 noise bounds;
 9. resume and pipeline: the 10,000-home community in hourly chunks, the
-   interior point over 6 steps with ``fleet.pipeline`` off, on, on
-   stopped after 3 chunks and resumed (``simulation.resume``), on and off
-   again, all bit-equal, then ReLU-QP through the fused window stopped after 2 of 4
+   interior point over 4 steps with ``fleet.pipeline`` off, on, on
+   stopped after 2 chunks and resumed (``simulation.resume``), on and off
+   again, all bit-equal, then ReLU-QP through the fused window stopped after 1 of 2
    chunks and resumed, bit-equal to its uninterrupted run; seconds per
    step, ``phase_times``, checkpoint bytes and write seconds;
 10. ``integer_repair = "resolve"``: for each solver an 8-home run on the
-   card against the CPU, then 10,000 homes × 4 steps with solve rate,
+   card against the CPU, then 10,000 homes × 2 steps with solve rate,
    repair failures and launch counts (more a step than project mode's);
 11. ``band_kernel = "xla"``: 1,000 homes × 2 IPM steps launch no band
    kernel and give the kernel route's bits;
-12. the RL cases: the baseline over 48 hourly steps, then ``run_rl_agg``
-   on the 10,000-home community, H = 24, the same 48 steps in daily
-   chunks, the linear agent through the IPM's split route (solve rate ≥
-   0.99 on day 1 and no more than 0.01 below the baseline's over the 48
-   steps, the reward price finite, within ±max_rp and not constant, the
+12. the RL cases: the baseline over 36 hourly steps, then ``run_rl_agg``
+   on the 10,000-home community, H = 24, the same 36 steps in daily
+   chunks (24 and 12), the linear agent through the IPM's split route
+   (solve rate ≥ 0.99 on day 1 and no more than 0.01 below the baseline's
+   over the 36 steps, the reward price finite, within ±max_rp and not constant, the
    ridge refit running from step 34), the same run
    stopped after its first chunk and resumed bit for bit (results.json,
    the price, rl_data); the DDPG agent through the fused band route (its
@@ -71,6 +75,33 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    the CPU tests' tolerances, the community's series within phase 4's),
    and ``run_rl_simplified`` over 3 days on both, within the CPU tests'
    tolerances;
+13. the fleet with scenarios: ``Aggregator(config, device="cuda").run()``
+   on 4 communities × 2,500 homes (24 h weather offsets) under the
+   stress_dr_outage pack (six home types, daily tariff shocks and DR
+   calls, the day-2 outage), ``tpu.fix_tou_peak``, H = 24, 42 hourly
+   steps in daily chunks (24 and 18) through the IPM's split route (no tail
+   compaction, whose sub-batch depends on the batch): every band
+   kernel of the route launched, on solved homes the DR cap and the
+   islanding held within one duty count per appliance (+0.05 kW; the
+   integer pin rounds the applied action), the solve rate per community
+   and day; community 3 against its standalone run (community_base 3,
+   through the fused band route, which the split route's kernels equal
+   bit for bit; the same 42-step population, stopped after its first
+   chunk) over that chunk, home by home before the home's first flip (a
+   solved flag or applied duty counts that differ: float32 noise at the
+   iteration cap or at a count's .5): the cost of homes without a
+   battery and the temperatures within tests/test_fleet.py's bounds, the
+   battery series and battery homes' cost within bounds set from
+   ``python -m dragg_tpu_torch.fleet_witness`` (the same community at the
+   fleet's batch sizes parts as far on the card), flags agreeing on ≥ 98
+   % of home-steps and ≥ 85 % of home-steps before their home's first
+   flip;
+   the same fleet for 24 steps with ReLU-QP through the fused window,
+   the same event checks; 12 homes (two of each type) × 2 communities
+   with inline events, H = 6, 8 steps, the CPU against the card step by
+   step, home-step by home-step where the home's bucket stopped below the
+   iteration cap on both (at least 120 of 192): solved flags equal and
+   the series within phase 4's 1e-2;
 
 then prints the kernels JSON line, the card line and, last, the result
 line.  Per-shape details go to chiprun_out/chip_smoke.json.
@@ -96,6 +127,7 @@ WINDOW = "fused_window"
 WINDOW_SOURCE = "dragg_tpu_torch/csrc/iter.cu"
 WINDOW_REPLACES = "dragg_tpu/ops/pallas_iter.py:180"
 MAIN_HORIZON = 24
+GRID = "grid24"   # kernel_phase's horizon tag of the grid-block shapes (H = 24)
 # The fused window is held against its plain version at rtol 1e-3 / atol
 # 1e-4 (dragg_tpu_torch/bench_window.check_window): the float32 sums run in
 # another order (tests/test_pallas_iter.py holds the Pallas kernel so).
@@ -573,9 +605,13 @@ def reluqp_main_path(outputs_dir: str) -> dict:
     return stats
 
 
+ROUTE_STEPS_H24 = 3
+
+
 def route_check() -> dict:
-    """The kernel route against the lax route on the card, 1,000 homes × 6
-    steps of the mixed community each way.  At a 4 h horizon (the horizon
+    """The kernel route against the lax route on the card, 1,000 homes of
+    the mixed community each way, 6 steps at H = 4 and ROUTE_STEPS_H24 at
+    H = 24.  At a 4 h horizon (the horizon
     of tests/test_reluqp.py's fixture) the homes converge well inside the
     iteration cap, and the two routes must match under the flip-aware
     assertion set.  At the main path's 24 h a few homes stop at the cap on
@@ -591,11 +627,12 @@ def route_check() -> dict:
               iterations_kernel=kern["admm_iters"].tolist(),
               iterations_lax=lax["admm_iters"].tolist())
     t0 = time.perf_counter()
-    kern, s = engine_chunk(1000, 24, 6, "cuda", bucketed="auto", iter_kernel="pallas")
+    kern, s = engine_chunk(1000, 24, ROUTE_STEPS_H24, "cuda", bucketed="auto",
+                           iter_kernel="pallas")
     t1 = time.perf_counter()
-    lax, _ = engine_chunk(1000, 24, 6, "cuda", bucketed="auto", iter_kernel="lax")
+    lax, _ = engine_chunk(1000, 24, ROUTE_STEPS_H24, "cuda", bucketed="auto", iter_kernel="lax")
     t2 = time.perf_counter()
-    stats = dict(homes=1000, steps=6, horizon_4h_match=h4, horizon=24,
+    stats = dict(homes=1000, steps=6, steps_h24=ROUTE_STEPS_H24, horizon_4h_match=h4, horizon=24,
                  kernel_route_s=t1 - t0, lax_route_s=t2 - t1,
                  solve_rate_kernel=float(kern["correct_solve"].mean()),
                  solve_rate_lax=float(lax["correct_solve"].mean()),
@@ -659,9 +696,9 @@ def h48_route_check() -> dict:
 
 
 # ------------------------------------------- resume, pipeline, resolve
-RESUME_STEPS = 6          # hourly chunks of the IPM resume and pipeline runs
-RESUME_STEPS_RELUQP = 4
-RESOLVE_STEPS = 4
+RESUME_STEPS = 4          # hourly chunks of the IPM resume and pipeline runs
+RESUME_STEPS_RELUQP = 2
+RESOLVE_STEPS = 2
 
 
 def hourly_drive(outputs_dir: str, steps: int, solver: str = "ipm", stop=None,
@@ -773,6 +810,15 @@ def stepwise_cpu_vs_cuda(n_homes: int, horizon: int, steps: int, solver: str,
     """(CPU outputs, card outputs, duty steps s) of ``steps`` one-step
     chunks of the mixed community, both devices starting every step from
     the CPU run's state."""
+    cfg = community_config(n_homes, horizon, "2015-01-02 00", **tpu)
+    cfg["home"]["hems"]["solver"] = solver
+    return stepwise_engines(cfg, steps)
+
+
+def stepwise_engines(cfg: dict, steps: int, per_bucket: bool = False) -> tuple:
+    """``stepwise_cpu_vs_cuda`` for any config (a fleet's too);
+    ``per_bucket`` gives ``admm_iters`` per home, its bucket's count
+    (``bucket_iterations``)."""
     import numpy as np
 
     from dragg_tpu_torch.aggregator import Aggregator
@@ -780,13 +826,13 @@ def stepwise_cpu_vs_cuda(n_homes: int, horizon: int, steps: int, solver: str,
 
     engines = {}
     for dev in ("cpu", "cuda"):
-        cfg = community_config(n_homes, horizon, "2015-01-02 00", **tpu)
-        cfg["home"]["hems"]["solver"] = solver
         with tempfile.TemporaryDirectory() as d:
-            agg = Aggregator(cfg, outputs_dir=d, device=dev)
+            agg = Aggregator(json.loads(json.dumps(cfg)), outputs_dir=d, device=dev)
             agg.get_homes()
             agg._build_engine()
         engines[dev] = agg.engine
+        if per_bucket:
+            bucket_iterations(agg.engine)
     rp = np.zeros((1, engines["cpu"].params.horizon), np.float32)
     state = engines["cpu"].init_state()
     outs = {"cpu": [], "cuda": []}
@@ -799,6 +845,21 @@ def stepwise_cpu_vs_cuda(n_homes: int, horizon: int, steps: int, solver: str,
         state = nxt
     stack = lambda rows: {f: np.concatenate([r[f] for r in rows]) for f in rows[0]}  # noqa: E731
     return stack(outs["cpu"]), stack(outs["cuda"]), engines["cpu"].params.s
+
+
+def bucket_iterations(engine) -> None:
+    """Make ``engine``'s merged ``admm_iters`` per home: the iteration
+    count of each home's bucket (the engine merges it as the largest
+    over buckets)."""
+    import torch
+
+    merge = engine._merge_outputs
+
+    def merged(outs):
+        return merge(outs)._replace(admm_iters=torch.cat(
+            [o.admm_iters.expand(o.correct_solve.shape) for o in outs]))
+
+    engine._merge_outputs = merged
 
 
 def resolve_phase(outputs_dir: str) -> dict:
@@ -890,7 +951,7 @@ def xla_route_check() -> dict:
 
 
 # ------------------------------------------------------------- RL cases
-RL_STEPS = 48          # two daily chunks, past the ridge refit's first step (34)
+RL_STEPS = 36          # a daily chunk and 12 steps, past the ridge refit's first step (34)
 RL_RELUQP_STEPS = 6
 RL_CHECK_STEPS = 12    # CPU against the card: 8 homes, 4 h horizon
 RL_SIMPLIFIED_END = "2015-01-04 00"  # a 3-day window
@@ -1109,8 +1170,8 @@ def rl_simplified_check() -> dict:
 
 
 def rl_phase(outputs_dir: str, baseline: dict) -> dict:
-    """The RL aggregator on the card: the 10,000-home community, H = 24, 48
-    hourly steps in daily chunks, first the baseline, then through the
+    """The RL aggregator on the card: the 10,000-home community, H = 24,
+    RL_STEPS hourly steps in daily chunks, first the baseline, then through the
     IPM's split route with the linear agent (the ridge refit from step 34 on), the same run stopped
     after its first chunk and resumed, bit-equal; the DDPG agent through
     the fused band route (its actor frozen until step 32); ReLU-QP through
@@ -1119,12 +1180,12 @@ def rl_phase(outputs_dir: str, baseline: dict) -> dict:
     on both.  ``baseline`` is the baseline main path's figures."""
     import numpy as np
 
-    # The baseline over the same 48 steps: day 2 (2015-01-02) holds homes
+    # The baseline over the same steps: day 2 (2015-01-02) holds homes
     # that no controller keeps in their comfort band, so the MPC's quality
     # is held at 0.99 on day 1 and, over both days, against the baseline's.
     base = rl_checks(rl_drive(os.path.join(outputs_dir, "rl-base"), case="baseline"),
-                     RL_STEPS, "baseline (48 steps)", priced=False)
-    log("baseline (10,000 homes, 48 steps): " + json.dumps(base))
+                     RL_STEPS, f"baseline ({RL_STEPS} steps)", priced=False)
+    log(f"baseline (10,000 homes, {RL_STEPS} steps): " + json.dumps(base))
     main = rl_drive(os.path.join(outputs_dir, "rl"))
     lin = rl_checks(main, RL_STEPS, "rl_agg (linear)")
     check(lin["solve_rate_day_1"] >= 0.99,
@@ -1141,14 +1202,16 @@ def rl_phase(outputs_dir: str, baseline: dict) -> dict:
     tq = np.asarray(main["rl_data"]["theta_q"])
     check(np.array_equal(tq[31], tq[1]) and np.array_equal(tq[32], tq[0]),
           "rl_agg (linear): θ_q moved before the ridge refit's first step")
-    change = [float(np.max(np.abs(tq[47] - tq[31]))), float(np.max(np.abs(tq[46] - tq[32])))]
+    last = RL_STEPS - 1  # odd, as step 31
+    change = [float(np.max(np.abs(tq[last] - tq[31]))),
+              float(np.max(np.abs(tq[last - 1] - tq[32])))]
     check(min(change) > 0, f"rl_agg (linear): the ridge refit did not run ({change})")
     lin.update(theta_q_change_after_step_34=change,
                baseline_launches_per_step=base["launches_per_step"],
                baseline_main_path_launches_per_step={
                    k: baseline["launches_split"][k] / 24
                    for k in ("banded_cholesky_t", "refined_banded_solve_t")})
-    log("rl_agg (linear, 10,000 homes, 48 steps): " + json.dumps(lin))
+    log(f"rl_agg (linear, 10,000 homes, {RL_STEPS} steps): " + json.dumps(lin))
 
     part = rl_drive(os.path.join(outputs_dir, "rl-res"), stop=1)
     check(part["agg"].timestep == 24 and part["agg"]._latest_checkpoint_dir() is not None,
@@ -1169,11 +1232,12 @@ def rl_phase(outputs_dir: str, baseline: dict) -> dict:
     check(ln["factor_refined_solve_t"] > 0 and ln["banded_cholesky_t"] == 0,
           f"rl_agg (DDPG) did not run the fused route: {ln}")
     norms = dd["rl_data"]["theta_mu"]  # the actor's parameter norm, step by step
-    check(len(set(norms[:32])) == 1 and norms[47] != norms[31],
-          f"rl_agg (DDPG): the actor's norm {norms[30:34]} … {norms[47]} (frozen to step "
+    check(len(set(norms[:32])) == 1 and norms[last] != norms[31],
+          f"rl_agg (DDPG): the actor's norm {norms[30:34]} … {norms[last]} (frozen to step "
           f"31, then moving)")
-    ddpg["actor_norm_change_after_step_32"] = abs(norms[47] - norms[31])
-    log("rl_agg (DDPG, fused band route, 10,000 homes, 48 steps): " + json.dumps(ddpg))
+    ddpg["actor_norm_change_after_step_32"] = abs(norms[last] - norms[31])
+    log(f"rl_agg (DDPG, fused band route, 10,000 homes, {RL_STEPS} steps): "
+        + json.dumps(ddpg))
 
     rq = rl_drive(os.path.join(outputs_dir, "rl-reluqp"), RL_RELUQP_STEPS, solver="reluqp",
                   iter_kernel="pallas", precision="f32")
@@ -1190,6 +1254,291 @@ def rl_phase(outputs_dir: str, baseline: dict) -> dict:
     return dict(baseline=base, linear=lin, resume=resume, ddpg=ddpg, reluqp=reluqp,
                 agent_step=agent_steps,
                 cpu_vs_cuda=stepwise, simplified=rl_simplified_check())
+
+# ------------------------------------------------- fleet with scenarios
+FLEET_C = 4              # communities of N_HOMES // FLEET_C homes
+FLEET_STEPS = 42         # a daily chunk and 18 steps: both DR calls and the day-2 outage
+FLEET_RELUQP_STEPS = 24
+FLEET_CPU_STEPS = 8
+FLEET_CPU_MIN_COMPARED = 120   # of its 192 home-steps (152 below the cap on the CPU)
+PACK = "stress_dr_outage"
+# The pack's events in sim hours (data/packs/stress_dr_outage.toml): a DR
+# call at 15-17 daily with a 2 kW cap, the outage at 34-35.
+DR_STEPS, OUTAGE_STEPS, DR_CAP_KW = (15, 16, 17, 39, 40, 41), (34, 35), 2.0
+# tests/test_torch_scenario_runs.py's bound on solved homes: the cap (0
+# for the outage) plus one duty count per appliance (the integer pin
+# rounds the applied action) plus 0.05 kW.
+EVENT_ATOL = 0.05
+COMMUNITY_MATCH_MIN_AGREE = 0.98
+COMMUNITY_MATCH_MIN_COMPARED = 0.85
+BATTERY_ATOL = 0.5         # kWh and kW: 2.5 × the witness's 0.203 (PERF.md)
+STORAGE_COST_ATOL = 0.4    # $: 2.6 × its 0.155
+# (rtol, atol) per series of community_match: tests/test_fleet.py's for
+# the cost of homes without storage and the temperatures; the battery
+# series and the cost of battery and EV homes from the batch witness.
+COMMUNITY_TOLS = {"cost": (1e-2, 2e-3), "temp_in": (0.0, 1e-3), "temp_wh": (0.0, 1e-3),
+                  "cost (storage homes)": (0.0, STORAGE_COST_ATOL),
+                  "e_batt": (0.0, BATTERY_ATOL), "p_batt_ch": (0.0, BATTERY_ATOL),
+                  "p_batt_disch": (0.0, BATTERY_ATOL)}
+
+
+def scenario_config(homes_per_community: int, horizon: int, steps: int,
+                    communities: int = 1, **tpu) -> dict:
+    """The mixed community under the stress_dr_outage pack (its mix
+    replaces the legacy one), ``tpu.fix_tou_peak``, 24 h weather offsets
+    between communities, ``steps`` hourly steps from 2015-01-01 00."""
+    from dragg_tpu_torch.config import pack_fleet_config
+
+    return pack_fleet_config(homes_per_community, horizon, steps, communities, PACK, **tpu)
+
+
+def fleet_drive(outputs_dir: str, steps: int, solver: str = "ipm", communities: int = FLEET_C,
+                base: int = 0, stop=None, **tpu) -> dict:
+    """One Aggregator run of the fleet (or, ``communities=1``, community
+    ``base`` of it alone) through the public entry point, every launch
+    count reset just before it and read just after; ``stop`` stops it
+    after that many daily chunks (the homes' water draws are drawn for the
+    whole run, so a shorter run would be another population)."""
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    cfg = scenario_config(N_HOMES // FLEET_C, MAIN_HORIZON, steps, communities, **tpu)
+    cfg["home"]["hems"]["solver"] = solver
+    cfg["fleet"]["community_base"] = base
+    agg = Aggregator(cfg, outputs_dir=outputs_dir, device="cuda")
+    agg.stop_after_chunks = stop
+    reset_launches()
+    t0 = time.perf_counter()
+    agg.run()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(agg.run_dir, "baseline", "results.json")) as f:
+        results = json.load(f)
+    return dict(agg=agg, results=results, launches=launches, run_s=run_s)
+
+
+def series_matrix(run: dict, key: str, steps: int):
+    """(steps, homes) of one per-home series of results.json, in all_homes
+    order; the state series drop their leading initial value."""
+    import numpy as np
+
+    res = run["results"]
+    lead = key in ("temp_in_opt", "temp_wh_opt", "e_batt_opt")
+    return np.array([res[h["name"]][key][lead:lead + steps] for h in run["agg"].all_homes],
+                    dtype=np.float64).T
+
+
+def event_checks(run: dict, steps: int, what: str) -> dict:
+    """Every home's series finite and complete; on solved homes the DR cap
+    and the islanding held (DR_STEPS, OUTAGE_STEPS within ``steps``);
+    the solve rate per community and day."""
+    import numpy as np
+
+    agg = run["agg"]
+    summary, _ = check_results(dict(run["results"]), steps)
+    s = float(agg.config["home"]["hems"]["sub_subhourly_steps"])
+    slack = max((float(h["hvac"]["p_c"]) + float(h["hvac"]["p_h"]) + float(h["wh"]["p"])) / s
+                for h in agg.all_homes)
+    pg = series_matrix(run, "p_grid_opt", steps)
+    ok = series_matrix(run, "correct_solve", steps) > 0
+    dr = [k for k in DR_STEPS if k < steps]
+    out = [k for k in OUTAGE_STEPS if k < steps]
+    check(bool(ok[dr].any()), f"{what}: no home solved in a DR step")
+    worst_dr = float(np.max(pg[dr][ok[dr]]))
+    check(worst_dr <= DR_CAP_KW + slack + EVENT_ATOL,
+          f"{what}: a solved home drew {worst_dr} kW in a DR step (cap {DR_CAP_KW}, "
+          f"one count per appliance {slack})")
+    worst_out = float(np.max(np.abs(pg[out][ok[out]]), initial=0.0)) if out else None
+    if out:
+        check(worst_out <= slack + EVENT_ATOL,
+              f"{what}: a solved home drew {worst_out} kW in the outage")
+    B = len(agg.all_homes) // agg.n_communities
+    rate = {f"c{c}": [float(ok[d * 24:(d + 1) * 24, c * B:(c + 1) * B].mean())
+                      for d in range(-(-steps // 24))] for c in range(agg.n_communities)}
+    phase = summary["phase_times"]
+    return dict(homes=len(agg.all_homes), communities=agg.n_communities, steps=steps,
+                buckets=[[b["name"], b["n_real"], b["m_eq"], b["n_var"], b["band_bw"]]
+                         for b in agg.engine.bucket_info()],
+                solve_rate=float(ok.mean()), solve_rate_per_community_day=rate,
+                solve_rate_dr_steps=float(ok[dr].mean()),
+                solve_rate_outage_steps=float(ok[out].mean()) if out else None,
+                max_p_grid_dr_solved=worst_dr, max_abs_p_grid_outage_solved=worst_out,
+                duty_count_slack_kw=slack,
+                s_per_step=(phase["device_chunks"] + phase["collect"]) / steps,
+                run_s=run["run_s"], launches=run["launches"],
+                launches_per_step={k: v / steps for k, v in run["launches"].items()},
+                iterations_per_step=summary["solver_iterations"],
+                mean_iterations=float(np.mean(summary["solver_iterations"])))
+
+
+def results_series(results: dict, names: list, steps: int) -> dict:
+    """``fleet_witness.compare_homes``'s (steps, homes) series of the homes
+    ``names`` from results.json (a home without a battery: zeros)."""
+    import numpy as np
+
+    keys = dict(correct_solve="correct_solve", hvac_cool_on="hvac_cool_on_opt",
+                hvac_heat_on="hvac_heat_on_opt", wh_heat_on="wh_heat_on_opt", cost="cost_opt",
+                temp_in="temp_in_opt", temp_wh="temp_wh_opt", e_batt="e_batt_opt",
+                p_batt_ch="p_batt_ch", p_batt_disch="p_batt_disch")
+    lead = ("temp_in", "temp_wh", "e_batt")  # their leading initial value
+    return {k: np.array([results[n][src][int(k in lead):int(k in lead) + steps]
+                         if src in results[n] else np.zeros(steps) for n in names],
+                        dtype=np.float64).T
+            for k, src in keys.items()}
+
+
+def community_match(fleet: dict, solo: dict, community: int, steps: int) -> dict:
+    """Community ``community`` of the fleet run against its standalone run
+    over the first ``steps`` steps, home by home (the homes are
+    independent), with ``fleet_witness.compare_homes``: each home on its
+    steps before its first flip (a solved flag that differs, or applied
+    duty counts more than ``fleet_witness.FLIP_COUNTS`` apart), held to
+    COMMUNITY_TOLS.  The cost of a home without a battery or an EV and the
+    temperatures are held to tests/test_fleet.py's bounds for those
+    series; the cost of a home with a battery or an EV and the battery
+    series to bounds set from ``python -m dragg_tpu_torch.fleet_witness``
+    on the card (PERF.md, Findings).  The two runs differ at all only
+    because a float32 sum over a row of odd length takes another order at
+    another alignment of the row there (the pv_battery, battery_only and
+    ev buckets; ``replica_check`` holds the rest bit for bit), and the
+    near-degenerate battery and EV coordinates carry that noise on.
+    Flags agree on at least COMMUNITY_MATCH_MIN_AGREE of the home-steps,
+    and at least COMMUNITY_MATCH_MIN_COMPARED of them come before their
+    home's first flip."""
+    import numpy as np
+
+    from dragg_tpu_torch.fleet_witness import compare_homes
+
+    names = [h["name"] for h in solo["agg"].all_homes]
+    fres, sres = fleet["results"], solo["results"]
+    check(all(n.startswith(f"c{community}-") for n in names) and all(n in fres for n in names),
+          f"community {community}'s homes are not the fleet's")
+    s = float(solo["agg"].config["home"]["hems"]["sub_subhourly_steps"])
+    battery = np.array(["battery" in h["type"] for h in solo["agg"].all_homes])
+    storage = battery | np.array([h["type"] == "ev" for h in solo["agg"].all_homes])
+    stats = compare_homes(results_series(sres, names, steps), results_series(fres, names, steps),
+                          s, battery, storage, COMMUNITY_TOLS)
+    stats = dict(community=community, **stats)
+    log(f"community {community} vs standalone: " + json.dumps(stats))
+    check(not stats["violations"], f"community {community} vs standalone: {stats['violations']}")
+    check(stats["solved_flag_agreement"] >= COMMUNITY_MATCH_MIN_AGREE
+          and stats["compared_share"] >= COMMUNITY_MATCH_MIN_COMPARED,
+          f"community {community} vs standalone: {stats}")
+    return stats
+
+
+def replica_check(fleet: dict, solo: dict, community: int, steps: int) -> dict:
+    """Community ``community`` at the fleet's batch sizes: FLEET_C copies
+    of its run alone in one engine (``fleet_witness.replica_engine``, the
+    rows of copy c where the fleet has community c), one chunk of
+    ``steps`` steps.  Copies 0 and 2, whose rows sit where the run alone
+    has them modulo 4 (every bucket's batch is even), equal the run alone
+    bit for bit, and copy ``community`` equals the fleet's community bit
+    for bit: the fleet's wiring adds nothing to a home's solve, and what
+    parts the fleet's community from its run alone is where its rows lie
+    (a float32 sum over a row of odd length takes another order at
+    another alignment on the card; ``python -m
+    dragg_tpu_torch.fleet_witness``)."""
+    import numpy as np
+
+    from dragg_tpu_torch.fleet_witness import BATTERY_SERIES, engine_series, replica_engine
+
+    names = [h["name"] for h in solo["agg"].all_homes]
+    battery = np.array(["battery" in h["type"] for h in solo["agg"].all_homes])
+    B = len(names)
+    rep, seconds = engine_series(replica_engine(solo["agg"], FLEET_C), steps)
+    copy = lambda c: {k: v[:, c * B:(c + 1) * B] for k, v in rep.items()}  # noqa: E731
+
+    def differing(a: dict, b: dict) -> list:
+        return [k for k in a if not np.array_equal(
+            a[k][:, battery] if k in BATTERY_SERIES else a[k],
+            b[k][:, battery] if k in BATTERY_SERIES else b[k])]
+
+    alone = results_series(solo["results"], names, steps)
+    in_fleet = results_series(fleet["results"], names, steps)
+    bad = {f"copy {c} vs alone": differing(alone, copy(c)) for c in (0, 2)}
+    bad[f"copy {community} vs the fleet's community {community}"] = differing(
+        in_fleet, copy(community))
+    stats = dict(homes=B * FLEET_C, steps=steps, run_s=seconds, series_differing=bad)
+    log("community 3 at the fleet's batch sizes: " + json.dumps(stats))
+    check(not any(bad.values()), f"the replica's copies are not bit-equal: {bad}")
+    return stats
+
+
+def fleet_cpu_vs_cuda() -> dict:
+    """12 homes (two of each of the six types) × 2 communities, 24 h
+    weather offsets, a tariff shock, a DR call (4 kW) and an outage in
+    the first 8 hours, H = 6, 8 one-step chunks, the CPU and the card each
+    from the CPU run's state, compared home-step by home-step: where the
+    home's bucket stopped below the iteration cap on both devices (at
+    least FLEET_CPU_MIN_COMPARED of the 192 home-steps; 152 on the CPU),
+    solved flags equal and every series within phase 4's 1e-2; flags
+    equal on ≥ 95 % of all home-steps."""
+    import numpy as np
+
+    from dragg_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg["community"].update(total_number_homes=12, homes_pv=2, homes_battery=2,
+                            homes_pv_battery=2, homes_ev=2, homes_heat_pump=2)
+    cfg["simulation"].update(start_datetime="2015-01-01 00", end_datetime="2015-01-02 00")
+    cfg["home"]["hems"]["prediction_horizon"] = 6
+    cfg["fleet"].update(communities=2, weather_offset_hours=24)
+    cfg["tpu"].update(fix_tou_peak=True, bucketed="true")
+    cfg["scenarios"]["events"] = [
+        dict(kind="tariff_shock", start_hour=1, duration_hours=3, price_delta=0.1),
+        dict(kind="dr", start_hour=2, duration_hours=3, p_cap_kw=4.0, comfort_relax_degc=1.5),
+        dict(kind="outage", start_hour=5, duration_hours=2, comfort_relax_degc=2.0)]
+    cpu, cuda, _ = stepwise_engines(cfg, FLEET_CPU_STEPS, per_bucket=True)
+    cap = 16 + 6 // 2  # engine_params' ipm_iters at H = 6
+    agree = cpu["correct_solve"] == cuda["correct_solve"]
+    below = (cpu["admm_iters"] < cap) & (cuda["admm_iters"] < cap)
+    compared = int(below.sum())
+    check(compared >= FLEET_CPU_MIN_COMPARED,
+          f"fleet CPU vs card: {compared} home-steps below the cap")
+    check(bool(agree[below].all()), "fleet CPU vs card: solved flags differ below the cap")
+    check(float(agree.mean()) >= 0.95, f"fleet CPU vs card: flags agree on {agree.mean():.3f}")
+    worst = {f: float(np.max(np.abs(cpu[f][below] - cuda[f][below]), initial=0.0))
+             for f in cpu if cpu[f].dtype.kind == "f" and cpu[f].ndim == 2}
+    check(max(worst.values()) <= ENGINE_CPU_CUDA_ATOL,
+          f"fleet CPU vs card: series differ by {worst}")
+    stats = dict(homes=24, steps=FLEET_CPU_STEPS, home_steps=int(below.size),
+                 home_steps_compared=compared,
+                 solved_flag_agreement=float(agree.mean()), max_abs_differences=worst)
+    log("fleet CPU vs card, step by step: " + json.dumps(stats))
+    return stats
+
+
+def fleet_phase(outputs_dir: str) -> dict:
+    """Phase 13: the fleet with scenarios (see the module docstring)."""
+    # The interior point's tail compaction picks the worst quarter of a
+    # bucket's batch, which depends on the batch's composition: the fleet
+    # and the community alone run without it (as tests/test_fleet.py
+    # does), so each home's iterates depend on its own QP alone.
+    ipm_run = fleet_drive(os.path.join(outputs_dir, "fleet"), FLEET_STEPS, ipm_tail_frac=0.0)
+    ipm = event_checks(ipm_run, FLEET_STEPS, "fleet (IPM)")
+    ln = ipm_run["launches"]
+    check(ln["banded_cholesky_t"] > 0 and ln["refined_banded_solve_t"] > 0
+          and ln["factor_refined_solve_t"] == 0 and ln[WINDOW] == 0,
+          f"fleet (IPM) did not run the split route's kernels alone: {ln}")
+    check(ipm_run["agg"].engine.n_communities == FLEET_C
+          and ipm_run["agg"].engine.events is not None, "fleet (IPM): not a fleet with events")
+    log(f"fleet (IPM, 4 × 2,500 homes, {FLEET_STEPS} steps): " + json.dumps(ipm))
+    solo = fleet_drive(os.path.join(outputs_dir, "fleet-c3"), FLEET_STEPS, communities=1,
+                       base=FLEET_C - 1, stop=1, band_fused=True, ipm_tail_frac=0.0)
+    ln = solo["launches"]
+    check(ln["factor_refined_solve_t"] > 0 and ln["banded_cholesky_t"] == 0,
+          f"community {FLEET_C - 1} alone did not run the fused route: {ln}")
+    match = community_match(ipm_run, solo, FLEET_C - 1, MAIN_HORIZON)
+    match.update(launches=ln, run_s=solo["run_s"],
+                 replica=replica_check(ipm_run, solo, FLEET_C - 1, MAIN_HORIZON))
+    rq_run = fleet_drive(os.path.join(outputs_dir, "fleet-reluqp"), FLEET_RELUQP_STEPS,
+                         solver="reluqp", iter_kernel="pallas", precision="f32")
+    reluqp = event_checks(rq_run, FLEET_RELUQP_STEPS, "fleet (ReLU-QP)")
+    ln = rq_run["launches"]
+    check(ln[WINDOW] > 0 and all(v == 0 for k, v in ln.items() if k != WINDOW),
+          f"fleet (ReLU-QP) did not run the fused window alone: {ln}")
+    log("fleet (ReLU-QP, fused window, 24 steps): " + json.dumps(reluqp))
+    return dict(ipm=ipm, community_3=match, reluqp=reluqp, cpu_vs_cuda=fleet_cpu_vs_cuda())
 
 
 def main() -> int:
@@ -1231,15 +1580,28 @@ def main() -> int:
             agg._build_engine()
             buckets[h] = agg.engine.bucket_info()
             del agg
+        # The grid-block shapes: 10,000 homes under the pack, H = 24.
+        agg = Aggregator(scenario_config(N_HOMES, MAIN_HORIZON, 1), outputs_dir=d, device="cuda")
+        agg.get_homes()
+        agg._build_engine()
+        grid = agg.engine.bucket_info()
+        check(agg.engine.events is not None and len(grid) == 6,
+              f"the grid-block community: {len(grid)} buckets, events {agg.engine.events}")
+        del agg
         shapes = [(h, b["name"], b["m_eq"], b["band_bw"], b["n_real"])
                   for h, bs in buckets.items() for b in bs]
         log(f"bucket band shapes (horizon, name, m, bw, B): {shapes}")
+        grid_shapes = [(GRID, b["name"], b["m_eq"], b["band_bw"], b["n_real"]) for b in grid]
+        log(f"grid-block band shapes: {grid_shapes}")
         kern = kernel_phase(shapes)
         win = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
                             for b in buckets[MAIN_HORIZON]])
         # H = 48: every bucket runs, the two largest on a 2-block cluster.
         win48 = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
                               for b in buckets[48]], sizes=(1001,))
+        kern_grid = kernel_phase(grid_shapes)
+        win_grid = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
+                                 for b in grid], sizes=(1001,))
         highs_check("ipm")
         highs_check("reluqp")
         cpu_vs_cuda_check()
@@ -1252,6 +1614,7 @@ def main() -> int:
         resolve = resolve_phase(d)
         xla = xla_route_check()
         rl = rl_phase(d, stats)
+        fleet = fleet_phase(d)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -1263,6 +1626,33 @@ def main() -> int:
                    "refined_banded_solve_t": rl["linear"]["launches"]["refined_banded_solve_t"],
                    "factor_refined_solve_t": rl["ddpg"]["launches"]["factor_refined_solve_t"],
                    WINDOW: rl["reluqp"]["launches"][WINDOW]}
+    # Phase 13: the band kernels from the fleet's split-route run, the fused
+    # kernel from community 3's run alone, the window from the ReLU-QP run.
+    launches_fleet = {"banded_cholesky_t": fleet["ipm"]["launches"]["banded_cholesky_t"],
+                      "refined_banded_solve_t":
+                          fleet["ipm"]["launches"]["refined_banded_solve_t"],
+                      "factor_refined_solve_t":
+                          fleet["community_3"]["launches"]["factor_refined_solve_t"],
+                      WINDOW: fleet["reluqp"]["launches"][WINDOW]}
+
+    def grid_block(rows, name=None):
+        """One call at each grid-block bucket's shape, summed."""
+        pick = (lambda r: r["kernels"][name]) if name else (lambda r: r)
+        out = {k: sum(pick(r)[k] for r in rows)
+               for k in ("ms", "device_ms", "plain_ms", "library_ms")}
+        if name:
+            out.update(bound_ms=sum(pick(r)["bound_ms"] for r in rows),
+                       bound_by=pick(rows[0])["bound_by"],
+                       shapes=[[r["bucket"], r["m"], r["bw"], r["B"]] for r in rows])
+        else:
+            t_b = sum(r["bound_bytes_ms"] for r in rows)
+            t_o = sum(r["bound_ops_ms"] for r in rows)
+            out.update(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                       shapes=[[r["bucket"], r["m"], r["n"], r["B"]] for r in rows],
+                       plans=[r["plan"] for r in rows])
+        return out
+
+    grid_rows = [r for r in kern_grid["per_shape"] if r["horizon"] == GRID]
     entries = []
     main_rows = [r for r in kern["per_shape"] if r["horizon"] == MAIN_HORIZON]
     floor_rows = [r for r in kern["one_block"] if r["horizon"] == MAIN_HORIZON]
@@ -1291,6 +1681,9 @@ def main() -> int:
             # (the fused kernel does not run on the default split route).
             launches_resolve=resolve["ipm"]["resolve"]["launches"][name],
             launches_rl=launches_rl[name],
+            launches_fleet=launches_fleet[name],
+            grid_block=dict(grid_block(grid_rows, name),
+                            max_abs_err=kern_grid["max_abs_err"][name]),
         ))
     rows = win["per_shape"]
     t_bytes = sum(r["bound_bytes_ms"] for r in rows)
@@ -1308,6 +1701,8 @@ def main() -> int:
         launches_resolve=resolve["reluqp"]["resolve"]["launches"][WINDOW],
         launches_rl=launches_rl[WINDOW],
         shapes=[[r["bucket"], r["m"], r["n"], r["B"]] for r in rows],
+        launches_fleet=launches_fleet[WINDOW],
+        grid_block=dict(grid_block(win_grid["per_shape"]), max_abs_err=win_grid["max_abs_err"]),
     ))
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
@@ -1315,7 +1710,8 @@ def main() -> int:
         json.dump({"card": card, "kernels": kern, "window": win, "window_h48": win48,
                    "main_path": stats, "main_path_reluqp": rstats, "routes": routes,
                    "routes_h48": routes48, "resume_pipeline": resume, "resolve": resolve,
-                   "band_kernel_xla": xla, "rl": rl}, f, indent=1)
+                   "band_kernel_xla": xla, "rl": rl, "kernels_grid": kern_grid,
+                   "window_grid": win_grid, "fleet": fleet}, f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

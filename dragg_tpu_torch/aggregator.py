@@ -16,7 +16,11 @@ results.json and writes the checkpoint while the main thread drives chunk
 N+1 on the card.  ``simulation.resume = true`` restores the latest
 checkpoint.
 
-One community runs here; fleets, telemetry and the sharded mesh raise
+A fleet (``fleet.communities > 1``) runs C communities, each drawn with
+its own seed and seeing its own weather offset, in one engine; the home
+list and results.json are community-major.  A ``[scenarios]`` pack
+expands into the home mix and the event timeline before anything reads
+them.  Telemetry, the sharded mesh and the RL cases of a fleet raise
 NotImplementedError naming their config key.
 """
 
@@ -61,7 +65,7 @@ from dragg_tpu_torch.homes import (
 )
 from dragg_tpu_torch.layout import date_folder_name, run_dir_name
 from dragg_tpu_torch.logger import Logger
-from dragg_tpu_torch.scenarios import apply_scenarios
+from dragg_tpu_torch.scenarios import apply_scenarios, describe_timeline, timeline_digest
 
 # Per-home series appended each timestep, in the reference's result-hash
 # vocabulary (dragg/aggregator.py:741-745) → StepOutputs field name.
@@ -80,6 +84,8 @@ _BASE_KEYS = {
 }
 _PV_KEYS = {"p_pv_opt": "p_pv", "u_pv_curt_opt": "u_pv_curt"}
 _BATT_KEYS = {"e_batt_opt": "e_batt", "p_batt_ch": "p_batt_ch", "p_batt_disch": "p_batt_disch"}
+_EV_KEYS = {"p_ev_ch_opt": "p_ev_ch", "e_ev_opt": "e_ev"}
+_SERIES_KEYS = {**_BASE_KEYS, **_PV_KEYS, **_BATT_KEYS, **_EV_KEYS}
 
 # Config switches this package does not run yet: (section, key, value
 # that is in the slice).
@@ -90,7 +96,7 @@ _OUT_OF_SLICE = (
 
 
 class Aggregator:
-    """Drop-in analog of the JAX package's Aggregator for one community.
+    """Drop-in analog of the JAX package's Aggregator.
 
     Parameters
     ----------
@@ -124,15 +130,13 @@ class Aggregator:
                 raise NotImplementedError(f"{section}.{key} is not ported yet")
         if self.config.get("tpu", {}).get("sharded", "auto") is True:
             raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
-        n_comm, _, weather_off = fleet_config(self.config)
-        if n_comm != 1:
-            raise NotImplementedError("fleet.communities: fleets are not ported yet")
-        if fleet_community_base(self.config) and weather_off:
-            # The base shifts the community's weather window by base ·
-            # offset hours, which only the fleet engine applies.
-            raise NotImplementedError(
-                "fleet.community_base: a nonzero base with "
-                "fleet.weather_offset_hours needs fleets, which are not ported yet")
+        # [fleet]: C communities in one engine; community.total_number_homes
+        # stays per community.  community_base is the global index of the
+        # first: it shifts the seeds, the names and the weather.
+        (self.n_communities, self._fleet_seed_stride,
+         self._fleet_weather_off_h) = fleet_config(self.config)
+        self._fleet_comm_base = fleet_community_base(self.config)
+        self._check_rl_fleet()
         self.check_type = self.config["simulation"]["check_type"]
         self.case = "baseline"
 
@@ -143,9 +147,13 @@ class Aggregator:
         self.dt = int(self.config["agg"]["subhourly_steps"])
         self.num_timesteps = int(np.ceil(self.hours * self.dt))
 
+        # The last community's weather runs (base + C - 1) · offset hours
+        # ahead, so the series must cover that much past the horizon.
         self.env: EnvironmentData = load_environment(self.config, data_dir=self.data_dir)
-        self.env.check_coverage(self.start_dt, self.end_dt,
-                                int(self.config["home"]["hems"]["prediction_horizon"]))
+        self.env.check_coverage(
+            self.start_dt, self.end_dt,
+            int(self.config["home"]["hems"]["prediction_horizon"])
+            + (self._fleet_comm_base + self.n_communities - 1) * self._fleet_weather_off_h)
         self.start_index = self.env.start_index(self.start_dt)
 
         self.all_homes: list[dict] | None = None
@@ -177,14 +185,35 @@ class Aggregator:
         # resume tests and staged runs use.
         self.stop_after_chunks: int | None = None
 
+    def _check_rl_fleet(self) -> None:
+        """The RL cases run one community here; a fleet's raise."""
+        sim = self.config["simulation"]
+        for case in ("run_rl_agg", "run_rl_simplified"):
+            if self.n_communities > 1 and sim.get(case, False):
+                raise NotImplementedError(
+                    f"fleet.communities = {self.n_communities} with simulation.{case}: "
+                    "the fleet form of the RL cases is not ported yet")
+
     # ----------------------------------------------------------- population
+    @property
+    def total_homes(self) -> int:
+        """Homes across the whole fleet (the per-community count × C)."""
+        return int(self.config["community"]["total_number_homes"]) * self.n_communities
+
     def _homes_cache_file(self) -> str:
-        n = int(self.config["community"]["total_number_homes"])
-        return os.path.join(self.outputs_dir, f"all_homes-{n}-config.json")
+        """``all_homes-<N>-config.json``; a fleet's name carries the
+        community count too, so a 2 × 500 fleet and a 1,000-home
+        community never reuse each other's population."""
+        n = self.total_homes
+        tag = f"{n}" if self.n_communities == 1 else f"{n}-{self.n_communities}comm"
+        return os.path.join(self.outputs_dir, f"all_homes-{tag}-config.json")
 
     def get_homes(self) -> None:
         """Create or reload the home population: reuse
-        ``all_homes-<N>-config.json`` unless overwrite_existing."""
+        ``all_homes-<N>-config.json`` unless overwrite_existing.  A fleet's
+        is C communities, each drawn with its own seed, in one
+        community-major list; each community is checked against the
+        (per-community) config counts."""
         homes_file = self._homes_cache_file()
         if not self.config["community"].get("overwrite_existing", True) and os.path.isfile(homes_file):
             with open(homes_file) as f:
@@ -195,17 +224,31 @@ class Aggregator:
                 seed=int(self.config["simulation"]["random_seed"]))
             self.all_homes = create_fleet_homes(
                 self.config, self.num_timesteps, self.dt, waterdraw)
-        check_home_configs(self.all_homes, self.config)
+        B = len(self.all_homes) // self.n_communities
+        for c in range(self.n_communities):
+            check_home_configs(self.all_homes[c * B:(c + 1) * B], self.config)
         with open(homes_file, "w") as f:
             json.dump(self.all_homes, f, indent=4)
 
     def _build_engine(self) -> None:
         hems = self.config["home"]["hems"]
         horizon = max(1, int(hems["prediction_horizon"]) * self.dt)
-        batch, _ = build_fleet_batch(self.all_homes, self.config, horizon,
-                                     self.dt, int(hems["sub_subhourly_steps"]))
-        self.engine = make_engine(batch, self.env, self.config,
-                                  self.start_index, device=self.device)
+        # A fleet's batch is type-major (each type's homes of every
+        # community together, one QP pattern a type); real_home_cols maps
+        # the outputs back to the community-major all_homes order.
+        batch, fleet = build_fleet_batch(self.all_homes, self.config, horizon,
+                                         self.dt, int(hems["sub_subhourly_steps"]))
+        self.engine = make_engine(batch, self.env, self.config, self.start_index,
+                                  device=self.device, fleet=fleet, data_dir=self.data_dir)
+        if fleet is not None:
+            self.log.logger.info(
+                f"fleet engine: {fleet.n_communities} communities × "
+                f"{fleet.homes_per_community} homes (seeds {fleet.seeds[0]}.."
+                f"{fleet.seeds[-1]}, weather offset {self._fleet_weather_off_h} "
+                f"h/community)")
+        if self.engine.events is not None:
+            self.log.logger.info(
+                f"scenario event timeline: {describe_timeline(self.engine.events)}")
         if self.engine.bucketed:
             self.log.logger.info(
                 "type-bucketed engine: " + ", ".join(
@@ -223,6 +266,8 @@ class Aggregator:
             keys += list(_PV_KEYS)
         if "battery" in home["type"]:
             keys += list(_BATT_KEYS)
+        if home["type"] == "ev":
+            keys += list(_EV_KEYS)
         return keys
 
     def reset_collected_data(self) -> None:
@@ -265,10 +310,11 @@ class Aggregator:
         ``track_setpoints=False`` skips the host's ``gen_setpoint``: the RL
         aggregator tracks the setpoint on the device and writes ``all_sps``
         itself."""
-        host = outs._asdict()
+        # Per-home columns in all_homes order (a fleet's batch is type-major).
+        cols = self.engine.real_home_cols
+        host = {f: a[:, cols] if a.ndim == 2 else a for f, a in outs._asdict().items()}
         n_steps = host["p_grid"].shape[0]
-        for out_key, field in (*_BASE_KEYS.items(), *_PV_KEYS.items(),
-                               *_BATT_KEYS.items()):
+        for out_key, field in _SERIES_KEYS.items():
             self.collector.add_chunk(out_key, host[field])
         agg_loads = host["agg_load"]
         self.baseline_agg_load_list.extend(float(v) for v in agg_loads)
@@ -333,10 +379,14 @@ class Aggregator:
         return self.avg_load
 
     def _max_possible_load(self) -> float:
-        """Sum of each home's max simultaneous load (dragg/mpc_calc.py:191)."""
-        return float(sum(
+        """Sum of each home's max simultaneous load (dragg/mpc_calc.py:191),
+        summed per community first."""
+        C = self.n_communities
+        B = len(self.all_homes) // C
+        per_community = np.array([sum(
             max(float(h["hvac"]["p_c"]), float(h["hvac"]["p_h"])) + float(h["wh"]["p"])
-            for h in self.all_homes))
+            for h in self.all_homes[c * B:(c + 1) * B]) for c in range(C)])
+        return float(per_community.sum())
 
     # ------------------------------------------------------------ checkpoint
     def _checkpoint_root(self) -> str:
@@ -383,11 +433,13 @@ class Aggregator:
     def _run_shape(self) -> dict:
         """What a checkpoint is valid for, with the JAX package's keys: the
         restored bookkeeping arrays and the state are sized by these, and
-        the solver family and precision set what the warm carry means, so a
-        config change between runs starts afresh instead of failing later
-        in a shape check.  Event timelines, fleet RL and several processes
-        are not in this package, so ``events`` and ``rl_fleet`` are None and
-        ``process_count`` is 1.  An RL case adds ``rl``, what sizes its
+        the solver family and precision set what the warm carry means, and
+        the community count and the event timeline's content digest what
+        the state and a step mean, so a config change between runs starts
+        afresh instead of failing later in a shape check or running on.
+        Fleet RL and several processes are not in this package, so
+        ``rl_fleet`` is None and ``process_count`` is 1.  An RL case adds
+        ``rl``, what sizes its
         agent's and environment's carries (the core, its critic count or
         width, the setpoint window), a key the JAX package does not write:
         a config change there starts afresh too, where the JAX package's
@@ -395,8 +447,8 @@ class Aggregator:
         eng = self.engine
         shape = {
             "num_timesteps": self.num_timesteps,
-            "n_homes": len(self.all_homes),
-            "communities": 1,
+            "n_homes": len(self.all_homes) if self.all_homes else self.total_homes,
+            "communities": self.n_communities,
             "solver": eng.params.solver if eng is not None else None,
             "precision": eng.params.precision if eng is not None else None,
             "n_home_slots": eng.n_homes if eng is not None else None,
@@ -405,7 +457,7 @@ class Aggregator:
                         if eng is not None and eng.bucketed else None),
             "horizon": int(self.config["home"]["hems"]["prediction_horizon"]),
             "state_rev": 2,
-            "events": None,
+            "events": timeline_digest(eng.events) if eng is not None else None,
             "rl_fleet": None,
             "process_count": 1,
         }
@@ -598,8 +650,17 @@ class Aggregator:
             "solver_iterations": list(self._solve_iters),
             "phase_times": {k: round(v, 3) for k, v in
                             getattr(self, "_phase_times", {}).items()},
-            "TOU": self.env.tou[sim_slice].tolist(),
         }
+        if self.n_communities > 1:
+            summary["fleet"] = {
+                "communities": self.n_communities,
+                "homes_per_community": int(cfg["community"]["total_number_homes"]),
+                "homes_total": self.total_homes,
+                "seed_stride": self._fleet_seed_stride,
+                "weather_offset_hours": self._fleet_weather_off_h,
+            }
+            summary["num_homes"] = self.total_homes
+        summary["TOU"] = self.env.tou[sim_slice].tolist()
         summary.update(self.extra_summary)
         return summary
 
@@ -667,6 +728,9 @@ class Aggregator:
         then the RL aggregator (``run_rl_agg``) and the RL agent against
         the simplified community (``run_rl_simplified``)."""
         self.log.logger.info("Made it to Aggregator Run")
+        # Again here: callers switch the RL cases on in ``config`` after
+        # construction (the CLI's and the tests' pattern).
+        self._check_rl_fleet()
         self.checkpoint_interval = self._checkpoint_steps()
         self.version = self.config["simulation"].get("named_version", "test")
         self.set_run_dir()

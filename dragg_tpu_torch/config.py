@@ -130,8 +130,8 @@ _DEFAULT: dict[str, Any] = {
         "homes_battery": 0,
         "homes_pv": 4,
         "homes_pv_battery": 0,
-        "homes_ev": 0,           # scenario home types (not ported: 0 keeps
-        "homes_heat_pump": 0,    # the reference's four-type population)
+        "homes_ev": 0,           # scenario home types (0 keeps the
+        "homes_heat_pump": 0,    # reference's four-type population)
         "overwrite_existing": True,
         "house_p_avg": 1.2,
     },
@@ -152,7 +152,7 @@ _DEFAULT: dict[str, Any] = {
         "base_price": 0.07,
         "subhourly_steps": 1,
         "tou_enabled": True,
-        "spp_enabled": False,        # settlement-point prices: not ported
+        "spp_enabled": False,        # ERCOT settlement-point prices for TOU
         "rl": {
             "action_horizon": 1,
             "forecast_horizon": 1,
@@ -221,7 +221,7 @@ _DEFAULT: dict[str, Any] = {
         },
     },
     # The RL price-signal agent (one community; fleet training, rl.fleet,
-    # is not ported and matters only with fleets).
+    # is not ported: an RL case with fleet.communities > 1 raises).
     "rl": {
         "utility": {"action_space": [-0.02, 0.02]},
         "parameters": {
@@ -275,13 +275,14 @@ _DEFAULT: dict[str, Any] = {
         "results_cache": 4096,
         "degrade_to_cpu": True,
     },
-    # Scenario packs and community event timelines: only the empty case
-    # (no pack, no events) runs here (scenarios.py).
+    # Scenario packs (data/packs/<pack>.toml: a home mix and events) and
+    # inline events: tariff shocks, DR calls, outages (scenarios/).
     "scenarios": {
         "pack": "",
         "events": [],
     },
-    # Multi-community fleets: only communities = 1 runs here.
+    # Multi-community fleets: C communities, each with its own seed and
+    # weather offset, in one engine (an RL case needs communities = 1).
     "fleet": {
         "communities": 1,
         "seed_stride": 1,            # community c's seed = random_seed + c·stride
@@ -419,4 +420,21 @@ def mixed_community_config(n_homes: int, horizon: int, end: str, **tpu) -> dict:
     cfg["home"]["hems"]["prediction_horizon"] = horizon
     cfg["agg"]["subhourly_steps"] = 1
     cfg["tpu"].update(tpu)
+    return cfg
+
+
+def pack_fleet_config(homes_per_community: int, horizon: int, steps: int,
+                      communities: int = 1, pack: str = "stress_dr_outage", **tpu) -> dict:
+    """``mixed_community_config`` under the scenario pack ``pack`` (its mix
+    replaces the legacy one) with ``tpu.fix_tou_peak``: ``communities``
+    communities of ``homes_per_community`` homes, 24 h of weather apart,
+    ``steps`` hourly steps from 2015-01-01 00 (the fleet of chip_smoke.py
+    phase 13)."""
+    from datetime import datetime, timedelta
+
+    end = (datetime(2015, 1, 1) + timedelta(hours=steps)).strftime("%Y-%m-%d %H")
+    cfg = mixed_community_config(homes_per_community, horizon, end,
+                                 **{"bucketed": "auto", "fix_tou_peak": True, **tpu})
+    cfg["scenarios"]["pack"] = pack
+    cfg["fleet"].update(communities=communities, weather_offset_hours=24)
     return cfg

@@ -7,8 +7,9 @@ default, ``fix_tou_peak`` for the intended tiering) and the same seeded
 synthetic generators, so both packages build identical series.
 
 Water-draw profiles are a :class:`WaterdrawProfiles` (values plus minute
-timestamps) in place of a DataFrame.  ERCOT SPP prices (``agg.spp_enabled``)
-are not in this package yet.
+timestamps) in place of a DataFrame.  ERCOT settlement-point prices
+(``agg.spp_enabled``) are read from a CSV (an ``.xlsx`` workbook must be
+converted first: there is no Excel reader here) or synthesized.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import csv
 import logging
 import os
 from dataclasses import dataclass
-from datetime import datetime
+from datetime import datetime, timedelta
 from typing import NamedTuple
 
 import numpy as np
@@ -117,6 +118,79 @@ def build_tou(
     return tou
 
 
+def _spp_timestamp(date: str, hour_ending: str) -> datetime:
+    """A Delivery Date (``MM/DD/YYYY`` as ERCOT writes it, or ISO
+    ``YYYY-MM-DD``) and an Hour Ending (``1``..``24`` or ``01:00``..
+    ``24:00``) → the hour-beginning timestamp."""
+    date = date.strip()
+    for fmt in ("%m/%d/%Y", "%Y-%m-%d"):
+        try:
+            day = datetime.strptime(date, fmt)
+            break
+        except ValueError:
+            continue
+    else:
+        raise ValueError(f"SPP Delivery Date {date!r}: not MM/DD/YYYY or YYYY-MM-DD")
+    return day + timedelta(hours=float(hour_ending.strip().replace(":00", "")) - 1)
+
+
+def load_spp(path: str, load_zone: str, dt: int) -> tuple[np.ndarray, datetime]:
+    """Ingest ERCOT DAM Settlement Point Prices from a CSV with the
+    workbook's columns (Delivery Date / Hour Ending / Settlement Point /
+    Settlement Point Price): rows of ``load_zone`` only, $/MWh → $/kWh,
+    Hour Ending shifted to hour-beginning, sorted in time (file order kept
+    among equal hours) with a repeated hour (DST) keeping its first row,
+    interior gaps filled forward onto a contiguous hourly grid, and each
+    hourly price repeated onto the dt-step grid.  Returns (prices at dt
+    steps/hour, timestamp of index 0)."""
+    if not path.endswith(".csv"):
+        raise RuntimeError(
+            f"{path}: only CSV settlement-point prices can be read here; "
+            "convert the ERCOT .xlsx workbook to .csv with the same columns")
+    with open(path, newline="") as f:
+        rows = [r for r in csv.DictReader(f)
+                if r.get("Settlement Point", "").strip() == load_zone]
+    if not rows:
+        raise ValueError(f"No SPP rows for load zone {load_zone!r} in {path}")
+    stamps = [_spp_timestamp(r["Delivery Date"], r["Hour Ending"]) for r in rows]
+    spp = np.array([float(r["Settlement Point Price"]) for r in rows]) / 1000.0
+    order = sorted(range(len(stamps)), key=stamps.__getitem__)
+    hours: dict[datetime, float] = {}
+    for i in order:
+        hours.setdefault(stamps[i], spp[i])
+    first, last = min(hours), max(hours)
+    n_hours = int((last - first).total_seconds() // 3600) + 1
+    grid = np.empty(n_hours)
+    for k in range(n_hours):
+        grid[k] = hours.get(first + timedelta(hours=k), grid[k - 1] if k else np.nan)
+    return np.repeat(grid, dt), first
+
+
+def synth_spp(start: datetime, days: int, dt: int, seed: int = 0) -> np.ndarray:
+    """Synthetic day-ahead price series ($/kWh) with a morning/evening
+    double peak, for runs without ERCOT data."""
+    rng = np.random.RandomState(seed ^ 0x599)
+    n = days * 24 * dt
+    hod = (np.arange(n) / dt + start.hour) % 24.0
+    base = 0.03 + 0.02 * np.exp(-0.5 * ((hod - 8) / 2.0) ** 2) \
+        + 0.035 * np.exp(-0.5 * ((hod - 18) / 2.5) ** 2)
+    noise = np.abs(rng.randn(n)) * 0.004
+    return base + noise
+
+
+def _align_price_series(prices: np.ndarray, price_start: datetime,
+                        data_start: datetime, n_steps: int, dt: int,
+                        base_price: float) -> np.ndarray:
+    """An independently indexed price series on the weather grid: steps
+    before or after its span take its edge values; an empty series gives
+    the base price throughout."""
+    if len(prices) == 0:
+        return np.full(n_steps, float(base_price))
+    offset = int(round((data_start - price_start).total_seconds() / 3600 * dt))
+    idx = np.clip(np.arange(n_steps) + offset, 0, len(prices) - 1)
+    return np.asarray(prices, dtype=np.float64)[idx]
+
+
 def bundled_data_dir() -> str | None:
     """The repo's first-party ``data/`` directory, or None when the bundled
     weather file is absent (callers then use the synthetic generators)."""
@@ -129,11 +203,11 @@ def bundled_data_dir() -> str | None:
 
 def load_environment(config: dict, data_dir: str | None = None) -> EnvironmentData:
     """EnvironmentData from config: the NSRDB file if present, else synthetic
-    weather covering the simulation year; TOU prices.  ``data_dir=None``
-    resolves to the bundled ``data/`` assets, ``data_dir=""`` forces the
-    synthetic series."""
-    if bool(config["agg"].get("spp_enabled", False)):
-        raise NotImplementedError("agg.spp_enabled: SPP prices are not ported")
+    weather covering the simulation year; TOU prices, or with
+    ``agg.spp_enabled`` settlement-point prices (``$SPP_DATA_FILE``,
+    default spp_data.csv in the data dir, else synthetic) aligned onto the
+    weather grid.  ``data_dir=None`` resolves to the bundled ``data/``
+    assets, ``data_dir=""`` forces the synthetic series."""
     dt = int(config["agg"]["subhourly_steps"])
     seed = int(config["simulation"]["random_seed"])
     if data_dir is None:
@@ -156,6 +230,9 @@ def load_environment(config: dict, data_dir: str | None = None) -> EnvironmentDa
         year_start = datetime(start.year, 1, 1)
         oat, ghi, data_start = synth_weather(year_start, days=366, dt=dt, seed=seed)
 
+    if bool(config["agg"].get("spp_enabled", False)):
+        tou = _spp_series(config, data_dir, data_start, len(oat), dt, seed)
+        return EnvironmentData(oat=oat, ghi=ghi, tou=tou, data_start=data_start, dt=dt)
     tou_cfg = config["agg"].get("tou", {})
     tou = build_tou(
         len(oat),
@@ -170,6 +247,26 @@ def load_environment(config: dict, data_dir: str | None = None) -> EnvironmentDa
         fix_tou_peak=bool(config.get("tpu", {}).get("fix_tou_peak", False)),
     )
     return EnvironmentData(oat=oat, ghi=ghi, tou=tou, data_start=data_start, dt=dt)
+
+
+def _spp_series(config: dict, data_dir: str | None, data_start: datetime,
+                n_steps: int, dt: int, seed: int) -> np.ndarray:
+    """The settlement-point price series on the weather grid: from the
+    data dir's SPP file when it exists, else synthetic."""
+    spp_file = None
+    if data_dir is not None:
+        spp_file = os.path.join(data_dir, os.environ.get("SPP_DATA_FILE", "spp_data.csv"))
+    if spp_file is not None and os.path.exists(spp_file):
+        prices, price_start = load_spp(
+            spp_file, config["simulation"].get("load_zone", "LZ_HOUSTON"), dt)
+    else:
+        if spp_file is not None:
+            log.warning("SPP price file %s not found — substituting SYNTHETIC "
+                        "day-ahead prices.", spp_file)
+        prices = synth_spp(data_start, days=n_steps // (24 * dt) + 1, dt=dt, seed=seed)
+        price_start = data_start
+    return _align_price_series(prices, price_start, data_start, n_steps, dt,
+                               base_price=float(config["agg"]["base_price"]))
 
 
 def synth_weather(

@@ -18,7 +18,16 @@ Each step, for every home-type bucket:
    (``integer_repair = "project"``) or by a second solve with the three
    k = 0 counts pinned in the box (``"resolve"``);
 5. routes homes whose solve failed through the fallback controller
-   (dragg/mpc_calc.py:527-596) and advances the state.
+   (dragg/mpc_calc.py:527-596) and advances the state, the EV's charge
+   and its trip drain included.
+
+A fleet (``fleet.communities > 1``, ``homes.FleetSpec``) folds C
+communities into the home axis, type-major, so each type bucket holds
+every community's homes of that type; each home keeps its community's
+seed for its forecast noise, its community's weather offset and its
+community's row of the event timeline (``scenarios.timeline``): tariff
+shocks added to the price, DR caps and outage islanding on an explicit
+grid-power block, and comfort relief.
 
 PyTorch runs eagerly, so a chunk is a Python loop over steps; the per-home
 arrays (``HomeBatch``, ``CommunityState``, ``StepOutputs``) are
@@ -50,6 +59,8 @@ from dragg_tpu_torch.ops.qp import (
     TYPE_SPECS,
     assemble_qp_step,
     build_qp_static,
+    ev_charge_bounds,
+    hp_cops,
     recover_solution,
     shift_warm_start,
     superset_spec_for,
@@ -101,8 +112,13 @@ class _TypeBucket(NamedTuple):
     static: object           # ops.qp.HomeQPStatic
     batch: object            # HomeBatch of tensors
     check_mask: torch.Tensor  # (n,) float32
-    noise_idx: torch.Tensor  # (n,) forecast-noise stream id per home
-    home_key: torch.Tensor   # (n, 2) per-home base PRNG key
+    noise_idx: torch.Tensor  # (n,) forecast-noise stream id per home: its
+                             # index within its own community
+    home_key: torch.Tensor   # (n, 2) per-home base PRNG key (its
+                             # community's seed)
+    home_idx: np.ndarray     # (n,) community-major fleet index (host)
+    env_off: torch.Tensor    # (n,) offset into the environment series
+    comm_idx: torch.Tensor   # (n,) community: the event-timeline row
 
 
 class CommunityState(NamedTuple):
@@ -163,8 +179,9 @@ class StepAux(NamedTuple):
 
     draw0: torch.Tensor        # (n,) liters drawn this step
     temp_wh_init: torch.Tensor  # (n,) draw-mixed initial WH temp
-    oat1: torch.Tensor         # () OAT at t+1 (fallback simulation forcing)
-    ghi_w: torch.Tensor        # (H+1,)
+    oat1: torch.Tensor         # () OAT at t+1 (fallback simulation forcing);
+                               # (n,) under fleet weather offsets
+    ghi_w: torch.Tensor        # (H+1,); (n, H+1) under fleet weather offsets
     price_total: torch.Tensor  # (n, H)
     cool_cap: torch.Tensor     # (n,)
     heat_cap: torch.Tensor     # (n,)
@@ -215,18 +232,38 @@ class Engine:
     per-home constant on ``device``.  Build via :func:`make_engine`."""
 
     def __init__(self, params: EngineParams, batch, env_oat, env_ghi, env_tou,
-                 check_mask=None, device=None):
+                 check_mask=None, device=None, fleet=None, events=None, hour0: int = 0):
         self.params = params
         self.device = dev = resolve_device(device)
         codes = np.asarray(batch.type_code)
-        for t in ("ev", "heat_pump"):
-            if np.any(codes == TYPE_CODES[t]):
-                key = "homes_ev" if t == "ev" else "homes_heat_pump"
-                raise NotImplementedError(
-                    f"community.{key}: {t} homes are not ported yet")
+        # A timeline that changes nothing is None, so an event-free run is
+        # the same program, bit for bit, as one built without a timeline.
+        self._events = None if events is None or events.inert else events
+        if self._events is not None:
+            want_c = 1 if fleet is None else fleet.n_communities
+            if self._events.n_communities != want_c:
+                raise ValueError(
+                    f"event timeline covers {self._events.n_communities} "
+                    f"communities but the engine runs {want_c}")
+        # Grid events add the explicit p_grid block to every bucket's shape.
+        grid_events = self._events is not None and self._events.has_grid
+        # Hour of day at environment index 0: EV away windows are
+        # wall-clock hours.
+        self._hour0 = int(hour0)
         self._oat = torch.as_tensor(np.asarray(env_oat), dtype=F32, device=dev)
         self._ghi = torch.as_tensor(np.asarray(env_ghi), dtype=F32, device=dev)
         self._tou = torch.as_tensor(np.asarray(env_tou), dtype=F32, device=dev)
+        # The (C, T) event series of the families the schedule uses.
+        self._evt: dict[str, torch.Tensor] = {}
+        if self._events is not None:
+            ev = self._events
+            for name, used, series in (("price", ev.has_price, ev.price),
+                                       ("cap", ev.has_grid, ev.cap),
+                                       ("floor", ev.has_grid, ev.floor),
+                                       ("relax", ev.has_relax, ev.relax)):
+                if used:
+                    self._evt[name] = torch.as_tensor(np.asarray(series), dtype=F32,
+                                                      device=dev)
         H = params.horizon
         self._noise_std = torch.minimum(
             torch.pow(torch.tensor(1.1, dtype=F32, device=dev),
@@ -242,24 +279,49 @@ class Engine:
         if check_mask is None:
             check_mask = np.ones(batch.n_homes)
         cmask = np.asarray(check_mask, dtype=np.float64)
+        # Each batch row's fleet identity; one community is the C = 1 case.
+        self._fleet = fleet
+        n = batch.n_homes
+        if fleet is None:
+            rows = dict(home_idx=np.arange(n), noise_idx=np.arange(n),
+                        env_off=np.zeros(n, np.int64), comm_idx=np.zeros(n, np.int64))
+            seeds = (params.seed,)
+        else:
+            rows = dict(home_idx=np.asarray(fleet.global_idx, np.int64),
+                        noise_idx=np.asarray(fleet.local_idx, np.int64),
+                        env_off=np.asarray(fleet.env_offset, np.int64),
+                        comm_idx=np.asarray(fleet.community, np.int64))
+            seeds = fleet.seeds
+        self._fleet_rows = rows
+        # All-zero offsets keep the shared-window slice; any offset gathers
+        # a window per home.
+        self._per_home_env = bool(np.any(rows["env_off"]))
+        keys = torch.stack([rng.prng_key(sd, dev) for sd in seeds])
         ranges = resolve_bucket_plan(params.bucketed, codes)
         self._bucketed = ranges is not None
         self.n_homes = batch.n_homes
         if ranges is None:
             ranges = [("superset", 0, batch.n_homes)]
-        key = rng.prng_key(params.seed, dev)
         self._buckets: list[_TypeBucket] = []
         for tname, a, b in ranges:
             spec = (superset_spec_for(codes) if tname == "superset"
                     else TYPE_SPECS[tname])
+            if grid_events:
+                spec = spec._replace(has_grid=True)
             sub = slice_batch(batch, a, b)
+            row = lambda k: torch.as_tensor(rows[k][a:b], dtype=torch.int64,  # noqa: E731
+                                            device=dev)
             self._buckets.append(_TypeBucket(
                 name=tname, lay=QPLayout(H, spec), comm_start=a, n=b - a,
                 static=build_qp_static(sub, H, params.dt, spec, device=dev),
                 batch=home_batch_from_numpy(sub._asdict(), dev),
                 check_mask=torch.as_tensor(cmask[a:b], dtype=F32, device=dev),
-                noise_idx=torch.arange(a, b, device=dev),
-                home_key=key.expand(b - a, 2),
+                noise_idx=row("noise_idx"),
+                home_key=(keys[0].expand(b - a, 2) if fleet is None
+                          else keys[row("comm_idx")]),
+                home_idx=rows["home_idx"][a:b],
+                env_off=row("env_off"),
+                comm_idx=row("comm_idx"),
             ))
 
     @property
@@ -288,6 +350,53 @@ class Engine:
                      nnz=c.static.pattern.nnz,
                      band_bw=band_plan(c.static.pattern).bw)
                 for c in self._buckets]
+
+    @property
+    def events(self):
+        """The engine's event timeline (``scenarios.EventTimeline``), None
+        when it schedules nothing."""
+        return self._events
+
+    @property
+    def fleet(self):
+        """The ``homes.FleetSpec`` this engine was built with (None for one
+        community)."""
+        return self._fleet
+
+    @property
+    def n_communities(self) -> int:
+        return 1 if self._fleet is None else self._fleet.n_communities
+
+    @property
+    def real_home_cols(self) -> np.ndarray:
+        """Column of each home of the merged per-home outputs, in the
+        community-major fleet order (the aggregator's ``all_homes``
+        order): the identity for one community; for a fleet, whose batch
+        is type-major, the inverse of the rows' fleet index."""
+        cols = np.empty(self.n_homes, dtype=np.int64)
+        cols[self._fleet_rows["home_idx"]] = np.arange(self.n_homes)
+        return cols
+
+    @property
+    def real_home_pairs(self) -> np.ndarray:
+        """(n_homes, 2) ``(community, output column)`` per home in the
+        community-major fleet order: row j is home j % B of community
+        j // B (community 0 throughout for one community)."""
+        cols = self.real_home_cols
+        if self._fleet is None:
+            comm = np.zeros(len(cols), dtype=np.int64)
+        else:
+            comm = np.arange(len(cols)) // self._fleet.homes_per_community
+        return np.stack([comm, cols], axis=1)
+
+    def community_fold_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(comm_idx, mask)`` aligned with the merged per-home output
+        columns, for per-community sums of a per-home series: summing
+        ``vec * mask`` over each community's columns gives that
+        community's share of ``agg_load``-style totals."""
+        comm = self._fleet_rows["comm_idx"]
+        mask = np.concatenate([c.check_mask.cpu().numpy() for c in self._buckets])
+        return comm.astype(np.int32), mask.astype(np.float32)
 
     # ---------------------------------------------------------------- state
     def init_state(self):
@@ -325,8 +434,10 @@ class Engine:
     # ----------------------------------------------------------------- step
     def _prepare(self, ctx: _TypeBucket, state: CommunityState, t: int, rp):
         """Assemble phase for one bucket: water draws, environment windows,
-        the noisy seasonal gate, and the batched QP.  ``rp`` is the (H,)
-        reward-price vector for this step."""
+        event windows, EV availability, the noisy seasonal gate, and the
+        batched QP.  ``rp`` is the (H,) reward-price vector for this step,
+        or (C, H), one row per community, routed to each home through its
+        community index."""
         p, lay, b = self.params, ctx.lay, ctx.batch
         H, dt, s, dev = p.horizon, p.dt, p.s, self.device
 
@@ -349,11 +460,49 @@ class Engine:
                         + TAP_TEMP * draw_size[:, 0]) / tank
 
         # --- Environment windows (true values; dragg/mpc_calc.py:211-230).
+        # Fleet weather offsets shift each home's window by its
+        # community's offset (a gather per home); with every offset zero
+        # all homes share one window.
         start = p.start_index + t
-        oat_w = self._oat[start:start + H + 1]
-        ghi_w = self._ghi[start:start + H + 1]
-        tou_w = self._tou[start:start + H]
-        price_total = (rp[None, :] + tou_w[None, :]).expand(ctx.n, H)
+        rp_rows = rp[ctx.comm_idx] if rp.ndim == 2 else rp[None, :]
+        if self._per_home_env:
+            rows = start + ctx.env_off[:, None] + torch.arange(H + 1, device=dev)[None, :]
+            oat_w, ghi_w = self._oat[rows], self._ghi[rows]        # (n, H+1)
+            price_total = rp_rows + self._tou[rows[:, :H]]
+            oat0, oat1, oat_fore = oat_w[:, 0], oat_w[:, 1], oat_w[:, 1:]
+        else:
+            oat_w = self._oat[start:start + H + 1]
+            ghi_w = self._ghi[start:start + H + 1]
+            tou_w = self._tou[start:start + H]
+            price_total = rp_rows + tou_w[None, :]
+            oat0, oat1, oat_fore = oat_w[0], oat_w[1], oat_w[None, 1:]
+
+        # --- Event windows, gathered per home from its community's row.
+        # Events are scheduled in sim time, never weather-offset.
+        def evt_window(name, offset=0):
+            series = self._evt[name]                               # (C, T)
+            a = min(max(start + offset, 0), series.shape[1] - H)  # dynamic_slice clamp
+            return series[:, a:a + H][ctx.comm_idx]                # (n, H)
+
+        if "price" in self._evt:
+            price_total = price_total + evt_window("price")
+        grid_cap = evt_window("cap") if "cap" in self._evt else None
+        grid_floor = evt_window("floor") if "floor" in self._evt else None
+        # Comfort relief widens the bounded T_in entries, which sit at
+        # t + k + 1: one step ahead of the control window.
+        relax_w = evt_window("relax", 1) if "relax" in self._evt else None
+        price_total = price_total.expand(ctx.n, H)
+
+        # --- EV availability and departure-deadline bounds (hour of day
+        # is wall clock: environment index → hour via the series' start).
+        if lay.has_ev:
+            ks = torch.arange(H, device=dev)
+            hod_ctrl = ((p.start_index + t + ks) // dt + self._hour0) % 24
+            hod_state = ((p.start_index + t + 1 + ks) // dt + self._hour0) % 24
+            ev_avail, ev_floor = ev_charge_bounds(hod_ctrl, hod_state, b, state.e_ev, dt)
+            e_ev_init = state.e_ev
+        else:
+            ev_avail = ev_floor = e_ev_init = None
 
         # --- Seasonal gate on the noisy forecast: each home's noise is a
         # function of (community seed, t, home index) alone, so bucketing
@@ -361,7 +510,7 @@ class Engine:
         # reference's unbounded 1.1^k growth flips the gate beyond ~16 h).
         keys = rng.fold_in(rng.fold_in(ctx.home_key, t), ctx.noise_idx)
         noise = rng.normal(keys, H) * self._noise_std
-        oat_ev_max = torch.maximum(oat_w[0], torch.amax(oat_w[None, 1:] + noise, dim=1))
+        oat_ev_max = torch.maximum(oat0, torch.amax(oat_fore + noise, dim=1))
         winter = (oat_ev_max <= WINTER_MAX_OAT).to(F32)
         heat_cap = winter * s
         cool_cap = (1.0 - winter) * s
@@ -374,9 +523,11 @@ class Engine:
             e_batt_init=state.e_batt,
             cool_cap=cool_cap, heat_cap=heat_cap, wh_cap=s,
             discount=p.discount,
+            e_ev_init=e_ev_init, ev_avail=ev_avail, ev_floor=ev_floor,
+            grid_cap=grid_cap, grid_floor=grid_floor, comfort_relax=relax_w,
         )
         aux = StepAux(
-            draw0=draw_size[:, 0], temp_wh_init=temp_wh_init, oat1=oat_w[1],
+            draw0=draw_size[:, 0], temp_wh_init=temp_wh_init, oat1=oat1,
             ghi_w=ghi_w, price_total=price_total,
             cool_cap=cool_cap, heat_cap=heat_cap,
         )
@@ -442,8 +593,15 @@ class Engine:
         fails keep the relaxed action.  Either way the solved flag and the
         per-home attribution stay the relaxed solve's."""
         lay, st, b = ctx.lay, ctx.static, ctx.batch
-        pc, ph, pwh = b.hvac_p_c, b.hvac_p_h, b.wh_p
         a_in, awr, a_wh = st.a_in, st.awr, st.a_wh
+        if len(st.hp_cool_pos):
+            # Heat-pump buckets: the k = 0 thermal coefficients are the
+            # COP-scaled values assemble wrote into the matrix, read back.
+            pc = qp.vals[:, int(st.hp_cool_pos[0])] / a_in
+            ph = -qp.vals[:, int(st.hp_heat_pos[0])] / a_in
+        else:
+            pc, ph = b.hvac_p_c, b.hvac_p_h
+        pwh = b.wh_p
         col = lambda a, c: a[:, c]  # noqa: E731
         lo = lambda c: col(qp.l_box, c)  # noqa: E731
         hi = lambda c: col(qp.u_box, c)  # noqa: E731
@@ -539,6 +697,15 @@ class Engine:
 
         mpc = recover_solution(sol.x, lay, b, aux.ghi_w, price_total, s)
         solved = sol.solved
+        # Heat-pump homes deliver COP(OAT) thermal watts per electrical
+        # watt: the fallback's thermal simulation runs on COP-scaled rates
+        # (the electrical p_load below keeps the raw powers).
+        pc_fb, ph_fb = b.hvac_p_c, b.hvac_p_h
+        if lay.has_hp:
+            oat1v = torch.broadcast_to(aux.oat1, (n,))
+            cop_c1, cop_h1 = hp_cops(oat1v[:, None], b.hp_cop_base, b.hp_cop_slope)
+            pc_fb = pc_fb * (1.0 + b.is_hp * (cop_c1[:, 0] - 1.0))
+            ph_fb = ph_fb * (1.0 + b.is_hp * (cop_h1[:, 0] - 1.0))
         counter_inc = torch.where(solved, 0, state.counter + 1)
         ridx = torch.clamp(counter_inc, 0, H - 1).to(torch.long)[:, None]
         fb = fallback_control(
@@ -547,7 +714,7 @@ class Engine:
             torch.gather(state.plan_heat, 1, ridx)[:, 0],
             torch.gather(state.plan_wh, 1, ridx)[:, 0],
             state.temp_in, aux.temp_wh_init, aux.oat1,
-            b.hvac_r, b.hvac_c, b.hvac_p_c, b.hvac_p_h,
+            b.hvac_r, b.hvac_c, pc_fb, ph_fb,
             b.wh_r, b.wh_c, b.wh_p,
             b.temp_in_min, b.temp_in_max, b.temp_wh_min, b.temp_wh_max,
             aux.cool_cap, aux.heat_cap, torch.full((n,), s, dtype=F32, device=dev),
@@ -564,7 +731,20 @@ class Engine:
         p_d0 = pick(mpc.p_disch[:, 0], zeros)
         p_pv0 = pick(mpc.p_pv[:, 0], zeros)
         u_curt0 = pick(mpc.u_curt[:, 0], zeros)
-        p_ev0 = zeros
+        # EV: the applied k = 0 charge and the SOC it reaches; a vehicle
+        # returning between t and t+1 lands with its trip drained.
+        if lay.has_ev:
+            p_ev0 = pick(mpc.p_ev_ch[:, 0], zeros)
+            hod_t = ((p.start_index + t) // dt + self._hour0) % 24
+            hod_t1 = ((p.start_index + t + 1) // dt + self._hour0) % 24
+            away_now = (hod_t >= b.ev_away_start) & (hod_t < b.ev_away_end)
+            away_next = (hod_t1 >= b.ev_away_start) & (hod_t1 < b.ev_away_end)
+            e_ev_next = pick(mpc.e_ev[:, 1], state.e_ev)
+            e_ev_next = torch.where((b.is_ev > 0) & away_now & ~away_next,
+                                    torch.clamp(e_ev_next - b.ev_trip_kwh, min=0.0),
+                                    e_ev_next)
+        else:
+            p_ev0, e_ev_next = zeros, state.e_ev
         p_load0 = b.hvac_p_c * cool0 + b.hvac_p_h * heat0 + b.wh_p * wh0
         p_grid0 = p_load0 + (p_ch0 + p_d0 + p_ev0) - p_pv0
         price0 = price_total[:, 0]
@@ -589,7 +769,7 @@ class Engine:
             temp_in=temp_in_next,
             temp_wh=temp_wh_next,
             e_batt=e_batt_next,
-            e_ev=state.e_ev,
+            e_ev=e_ev_next,
             counter=torch.where(solved, 0, fb.counter).to(torch.int32),
             plan_cool=torch.where(sel2, mpc.cool, state.plan_cool),
             plan_heat=torch.where(sel2, mpc.heat, state.plan_heat),
@@ -621,7 +801,7 @@ class Engine:
             p_batt_ch=p_ch0,
             p_batt_disch=p_d0,
             p_ev_ch=p_ev0,
-            e_ev=state.e_ev,
+            e_ev=e_ev_next,
             agg_load=torch.sum(p_grid0 * mask),
             forecast_load=torch.sum(fore * mask),
             agg_cost=torch.sum(cost0 * mask),
@@ -682,15 +862,17 @@ class Engine:
         return torch.as_tensor(np.asarray(rp), dtype=F32, device=self.device)
 
     def step(self, state, t: int, rp) -> tuple:
-        """Run a single timestep: (new_state, StepOutputs).  A single step
-        always refreshes the solver carry."""
+        """Run a single timestep: (new_state, StepOutputs); ``rp`` is (H,)
+        or, per community, (C, H).  A single step always refreshes the
+        solver carry."""
         state, _, out = self._step(state, int(t), self._rp(rp), True,
                                    self.init_factor())
         return state, out
 
     def run_chunk(self, state, t0: int, rps) -> tuple:
         """Run ``rps.shape[0]`` timesteps from sim step ``t0``; ``rps`` is
-        (n_steps, H) reward prices (zeros for the baseline case).  Returns
+        (n_steps, H) reward prices (zeros for the baseline case), or
+        (n_steps, C, H), one row per community.  Returns
         (final_state, outputs stacked along time).
 
         The solver carry is chunk-local, as the JAX package's ``_chunk``: it
@@ -800,9 +982,32 @@ def check_mask_for(batch, config) -> np.ndarray:
     return (np.asarray(batch.type_code) == TYPE_CODES[check_type]).astype(np.float64)
 
 
-def make_engine(batch, env, config, start_index: int, device=None) -> Engine:
+def resolve_engine_events(config, env, params, fleet=None, data_dir=None):
+    """The event timeline of the config's ``[scenarios]`` table for this
+    fleet size and environment span (None when it schedules nothing)."""
+    from dragg_tpu_torch.scenarios import timeline_for
+
+    n_comm = 1 if fleet is None else fleet.n_communities
+    return timeline_for(config, n_comm, len(np.asarray(env.oat)), params.dt,
+                        params.start_index, data_dir=data_dir)
+
+
+def env_hour0(env) -> int:
+    """Hour of day at environment-series index 0 (``env.data_start``)."""
+    ds = getattr(env, "data_start", None)
+    return int(ds.hour) if ds is not None else 0
+
+
+def make_engine(batch, env, config, start_index: int, device=None, fleet=None,
+                events=None, data_dir=None) -> Engine:
     """An :class:`Engine` from a host HomeBatch + EnvironmentData +
-    validated config dict, on ``device`` (None = the CUDA card)."""
+    validated config dict, on ``device`` (None = the CUDA card).
+    ``fleet`` (a ``homes.FleetSpec`` from ``build_fleet_batch``) folds C
+    communities into the home axis; ``events`` overrides the event
+    timeline (default: resolved from the config's ``[scenarios]``)."""
     params = engine_params(config, start_index)
+    if events is None:
+        events = resolve_engine_events(config, env, params, fleet=fleet, data_dir=data_dir)
     return Engine(params, batch, env.oat, env.ghi, env.tou,
-                  check_mask=check_mask_for(batch, config), device=device)
+                  check_mask=check_mask_for(batch, config), device=device,
+                  fleet=fleet, events=events, hour0=env_hour0(env))

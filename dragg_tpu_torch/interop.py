@@ -38,6 +38,16 @@ def community_state_from_numpy(fields: dict, device):
                              for k in CommunityState._fields})
 
 
+def engine_state_from_numpy(state, device):
+    """The JAX engine's state (a CommunityState of arrays, or a tuple of
+    them, one per bucket) → the port's, on ``device``: how a test starts
+    both packages' engines, a fleet's included, from the same state."""
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        return tuple(engine_state_from_numpy(s, device) for s in state)
+    return community_state_from_numpy(
+        {k: np.asarray(v) for k, v in state._asdict().items()}, device)
+
+
 def agent_carry_from_numpy(fields: dict, device):
     """A linear ``AgentCarry._asdict()`` of numpy arrays → an AgentCarry of
     tensors."""

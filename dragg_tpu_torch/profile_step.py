@@ -2,6 +2,8 @@
 
     python -m dragg_tpu_torch.profile_step [--homes 10000] [--steps 8]
                                            [--solver ipm|reluqp]
+                                           [--pack stress_dr_outage]
+                                           [--communities 4]
 
 Builds the mixed community (the legacy bench mix: 40 % pv_only, 10 %
 battery_only, 10 % pv_battery, the rest base; 24 h horizon) and steps it
@@ -12,7 +14,10 @@ host clock (synchronised, profiler off), and a third traced with
 ``--steps`` equal to ``admm_refactor_every`` (8, the default) each timed
 chunk holds exactly one ReLU-QP rho-bank refresh, the main path's
 cadence (t = 0, 8 and 16 of the day).  ``--solver reluqp`` runs the fused
-window kernel (``tpu.iter_kernel = "pallas"``).
+window kernel (``tpu.iter_kernel = "pallas"``).  ``--pack`` runs a
+scenario pack's mix and events (``tpu.fix_tou_peak`` on), ``--communities``
+a fleet of that many communities of ``--homes / communities`` homes, 24 h
+of weather apart (the fleet of ``chip_smoke.py`` phase 13).
 
 Prints one JSON object: seconds per step, device kernel time per step
 (total; the band kernels; the fused window; the rho-bank build, from its
@@ -45,6 +50,8 @@ def main(argv=None) -> int:
     p.add_argument("--homes", type=int, default=10_000)
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--solver", choices=("ipm", "reluqp"), default="ipm")
+    p.add_argument("--pack", default="")
+    p.add_argument("--communities", type=int, default=1)
     args = p.parse_args(argv)
 
     import numpy as np
@@ -55,9 +62,12 @@ def main(argv=None) -> int:
     from dragg_tpu_torch.config import mixed_community_config
     from dragg_tpu_torch.ops.reluqp import BANK_BUILD_RANGE
 
-    n, k = args.homes, args.steps
-    cfg = mixed_community_config(n, 24, "2015-01-02 00", iter_kernel="pallas")
+    n, k, c = args.homes, args.steps, args.communities
+    cfg = mixed_community_config(n // c, 24, "2015-01-02 00", iter_kernel="pallas",
+                                 fix_tou_peak=bool(args.pack))
     cfg["home"]["hems"]["solver"] = args.solver
+    cfg["scenarios"]["pack"] = args.pack
+    cfg["fleet"].update(communities=c, weather_offset_hours=24 if c > 1 else 0)
     with tempfile.TemporaryDirectory() as d:
         agg = Aggregator(cfg, outputs_dir=d, device="cuda")
         agg.get_homes()
@@ -89,7 +99,8 @@ def main(argv=None) -> int:
     band_ms = sum(e[1] for e in kernels if any(b in e[0] for b in BAND_KERNELS)) / 1e3
     window_ms = sum(e[1] for e in kernels if WINDOW_KERNEL in e[0]) / 1e3
     result = dict(
-        card=torch.cuda.get_device_name(0), homes=n, steps=k, solver=args.solver,
+        card=torch.cuda.get_device_name(0), homes=n // c * c, communities=c,
+        pack=args.pack or None, steps=k, solver=args.solver,
         iter_kernel=eng.iter_kernel if args.solver == "reluqp" else None,
         s_per_step=wall, device_ms_per_step=total_ms, band_kernel_ms_per_step=band_ms,
         fused_window_ms_per_step=window_ms,
@@ -104,7 +115,8 @@ def main(argv=None) -> int:
              for e in kernels[:15]],
     )
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", f"profile_step_{args.solver}.json"), "w") as f:
+    tag = args.solver + (f"_{args.pack}" if args.pack else "") + (f"_c{c}" if c > 1 else "")
+    with open(os.path.join("chiprun_out", f"profile_step_{tag}.json"), "w") as f:
         json.dump(dict(result, all=[list(e) for e in kernels]), f, indent=1)
     print(json.dumps(result))
     return 0

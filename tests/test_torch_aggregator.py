@@ -2,8 +2,9 @@
 on the CPU) against the JAX package's, on the tests/test_engine.py day-run
 community: results.json carries the same keys, and the same series to
 1e-4 absolute (two float32 solvers ~1e-5 apart; see test_torch_engine).
-Also: a CPU run of the port, resumed from a checkpoint too, and its RL
-cases (both agents) load neither jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
+Also: a CPU run of the port, resumed from a checkpoint too, its RL cases
+(both agents), and a fleet with the shipped scenario pack load neither
+jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
 card; settings outside the port raise; and a community base without a
 weather offset runs the JAX package's homes on its weather."""
 
@@ -106,6 +107,18 @@ def test_cpu_run_loads_no_jax(tmp_path):
         "dd.config['rl']['parameters']['agent'] = 'ddpg'\n"
         "dd.run()\n"
         "print('RL', rl.agent.kind, dd.agent.kind, rl.timestep, dd.timestep)\n"
+        # A 2-community fleet under the shipped pack (six home types,
+        # tariff shocks, DR calls, the outage) with weather offsets.
+        "from dragg_tpu_torch.config import load_config\n"
+        f"fc = load_config({cfg_path!r})\n"
+        "fc['community']['total_number_homes'] = 10\n"
+        "fc['fleet'].update(communities=2, weather_offset_hours=24)\n"
+        "fc['scenarios']['pack'] = 'stress_dr_outage'\n"
+        "fc['tpu']['fix_tou_peak'] = True\n"
+        f"fl = Aggregator(config=fc, outputs_dir={out + '-fleet'!r}, device='cpu')\n"
+        "fl.run()\n"
+        "print('FLEET', fl.engine.n_communities, fl.engine.events is not None, "
+        "len(fl.all_homes), fl.timestep)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -127,11 +140,12 @@ def test_cpu_run_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
     assert lines[-1] == "LOADED []"
-    assert lines[-2] == "RL linear ddpg 3 3"
-    assert lines[-3] == "RESUMED 1 True 3"
-    assert os.path.exists(os.path.join(lines[-4], "baseline", "results.json"))
+    assert lines[-2] == "FLEET 2 True 20 3"
+    assert lines[-3] == "RL linear ddpg 3 3"
+    assert lines[-4] == "RESUMED 1 True 3"
+    assert os.path.exists(os.path.join(lines[-5], "baseline", "results.json"))
     base = str(tmp_path / "out")
-    rl_dir = lines[-4].replace(base, base + "-rl", 1)
+    rl_dir = lines[-5].replace(base, base + "-rl", 1)
     for case in ("baseline", "rl_agg", "simplified"):
         assert os.path.exists(os.path.join(rl_dir, case, "results.json")), case
     for case in ("rl_agg", "simplified"):
@@ -152,15 +166,43 @@ def test_default_device_needs_cuda(tmp_path):
     ("scenarios", "pack", "dr_heavy"),
     ("agg", "spp_enabled", True),
     ("fleet", "community_base", 2),
+    ("simulation", "run_rl_agg", True),
 ])
 def test_out_of_slice_settings_raise(tmp_path, section, key, value):
+    """Settings outside the port raise NotImplementedError naming their key:
+    the device trace, telemetry, and an RL case with a fleet.  Fleets, a
+    community base with a weather offset and SPP prices construct as in
+    the JAX package; a pack that is not shipped raises the JAX package's
+    own error."""
     cfg = _day_config()
     cfg[section][key] = value
     if key == "community_base":
         # A base shifts the weather window only together with an offset.
         cfg["fleet"]["weather_offset_hours"] = 24
-    with pytest.raises(NotImplementedError, match=f"{section}.{key}"):
-        Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+    if key == "run_rl_agg":
+        cfg["fleet"]["communities"] = 2
+    if key in ("profile_dir", "enabled", "run_rl_agg"):
+        with pytest.raises(NotImplementedError, match=f"{section}.{key}" if key != "run_rl_agg"
+                           else "fleet.communities = 2 with simulation.run_rl_agg"):
+            Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+        return
+    if key == "pack":
+        from dragg_tpu.scenarios import ScenarioError as JaxScenarioError
+
+        from dragg_tpu_torch.scenarios import ScenarioError
+
+        with pytest.raises(JaxScenarioError, match="dr_heavy") as want:
+            JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))
+        with pytest.raises(ScenarioError, match="dr_heavy") as got:
+            Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    ta = Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+    ja = JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))
+    for f in ("oat", "ghi", "tou"):
+        np.testing.assert_array_equal(getattr(ta.env, f), getattr(ja.env, f), err_msg=f)
+    assert (ta.n_communities, ta.total_homes, ta.start_index) == (
+        ja.n_communities, ja.total_homes, ja.start_index)
 
 
 def test_community_base_without_offset_matches_jax(tmp_path):

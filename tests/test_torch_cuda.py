@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions: the band kernels bit for bit (both round every multiply, add,
 divide and square root separately, in the same order), the fused ReLU-QP
-window to float32 sum-order rounding; a short RL run through the band
-kernels.
+window to float32 sum-order rounding, also at the shapes of grid-event
+buckets; a short RL run through the band kernels.
 Marked ``cuda``: they skip without a CUDA device; run them on the GPU with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
@@ -69,6 +69,30 @@ def test_kernels_match_plain_versions(card, bw, m, batch):
                            "factor_refined_solve_t": fused}
 
 
+@pytest.mark.parametrize("m,bw,B", [(76, 5, 2500), (76, 5, 10000), (101, 7, 1000),
+                                    (101, 7, 10000), (101, 7, 1001)])
+def test_grid_block_shapes_match_plain_versions(card, m, bw, B):
+    """The band kernels bit for bit against their plain versions at the
+    shapes an explicit grid-power block gives the interior point's
+    buckets (a community under grid events: m = 76, bw = 5 and m = 101,
+    bw = 7 at H = 24), at their bucket sizes of 10,000 homes under the
+    shipped stress_dr_outage pack: the refined solve of (101, 7) with
+    1,000 homes runs on 16-home blocks."""
+    from dragg_tpu_torch.bench_band import band_fixture
+
+    sms = bk._sms(card)
+    if (m, bw, B) == (101, 7, 1000):
+        assert bk.band_plan(m, bw, "solve", B, sms).hb == 16
+    St, r = band_fixture(m, bw, B, seed=m + bw + B)
+    L, Lp = bk.banded_cholesky_t(St, bw), bk.cholesky_t_plain(St, bw)
+    assert torch.equal(L, Lp)
+    for refine in (0, 1):
+        x = bk.refined_banded_solve_t(L, St, r, bw, refine)
+        assert torch.equal(x, bk.refined_solve_t_plain(Lp, St, r, bw, refine))
+        L2, x2 = bk.factor_refined_solve_t(St, r, bw, refine)
+        assert torch.equal(L2, L) and torch.equal(x2, x)
+
+
 def test_refused_band_plan_raises(card):
     """A plan the C entry point does not list, or whose bytes do not match
     the shape (or, for the fused kernel, the refine), is refused and never
@@ -89,7 +113,7 @@ def test_refused_band_plan_raises(card):
 
 
 @pytest.mark.parametrize("m,n,B", [(9, 21, 1001), (77, 221, 64), (52, 148, 300),
-                                   (100, 292, 40), (149, 437, 37)])
+                                   (100, 292, 40), (149, 437, 37), (101, 245, 1000)])
 def test_fused_window_matches_plain_version(card, m, n, B):
     """The fused ReLU-QP window against its plain version on a consistent
     fixture (S⁻¹ the inverse of Â D⁻¹ Âᵀ): rtol 1e-3 / atol 1e-4, the sums

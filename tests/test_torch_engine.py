@@ -98,13 +98,26 @@ def test_out_of_slice_settings_raise(section, key, value):
 
 
 def test_scenario_home_types_raise():
-    cfg = _config("auto")
-    cfg["community"]["homes_ev"] = 1
+    """ev and heat_pump homes build the JAX engine's buckets (names,
+    shapes, band widths); an event timeline sized for another number of
+    communities raises the JAX engine's ValueError."""
+    from dragg_tpu.scenarios import build_timeline
+
+    cfg = _config("true")
+    cfg["community"].update(homes_ev=1, homes_heat_pump=1)
     env = jd.load_environment(cfg)
     wd = jd.load_waterdraw_profiles(None, seed=12)
     batch = jh.build_home_batch(jh.create_homes(cfg, 24, 1, wd), 4, 1, 6)
-    with pytest.raises(NotImplementedError, match="community.homes_ev"):
-        te.make_engine(batch, env, cfg, 0, device="cpu")
+    keys = ("name", "comm_start", "n_real", "m_eq", "n_var", "nnz", "band_bw")
+    shapes = lambda eng: [[b[k] for k in keys] for b in eng.bucket_info()]  # noqa: E731
+    assert shapes(te.make_engine(batch, env, cfg, 0, device="cpu")) == shapes(
+        je.make_engine(batch, env, cfg, 0))
+    tl = build_timeline([dict(kind="dr", start_hour=1, duration_hours=2, p_cap_kw=2.0)],
+                        2, len(env.oat), 1, 0)
+    for make in (lambda: je.make_engine(batch, env, cfg, 0, events=tl),
+                 lambda: te.make_engine(batch, env, cfg, 0, device="cpu", events=tl)):
+        with pytest.raises(ValueError, match="covers 2 communities but the engine runs 1"):
+            make()
 
 
 def test_models_match_jax():
