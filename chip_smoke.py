@@ -102,6 +102,27 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    step, home-step by home-step where the home's bucket stopped below the
    iteration cap on both (at least 120 of 192): solved flags equal and
    the series within phase 4's 1e-2;
+14. the fleet RL cases: ``run_rl_agg`` on 4 communities × 2,500 homes
+   (legacy mix, no weather offset), H = 24: the shared linear agent
+   through the IPM's split route for 36 hourly steps in daily chunks
+   (solve rate ≥ 0.99 per community on day 1; each community's prices
+   finite, within ±max_rp, not constant and apart from the others'; the
+   shared ridge refit from step ⌊B/C⌋ + 1 = 9), the same run stopped
+   after its first chunk (its fleet_rl.json holding the run's prices)
+   and resumed bit for bit (results.json, the fleet_rl block, rl_data);
+   the shared DDPG agent through the fused band route for 12 steps (its
+   actor frozen until step ⌈B/C⌉ = 8, then moving); the per-community
+   linear agents for 12 steps; ReLU-QP through the fused window for 6;
+   ``rl.fleet.gradient = "mpc"``: the ValueError for ``band_kernel =
+   "auto"`` and ``iter_kernel = "pallas"`` before any launch, then
+   ReLU-QP on the lax route for 3 steps, score and mpc with
+   ``mpc_weight`` 1e4 (drda finite and not all zero, θ_μ apart); the
+   stress_dr_outage pack for 18 steps (event features non-zero every
+   step, the DR cap held on solved homes); one fleet agent step's time and launches at C = 4 (shared
+   linear, shared DDPG, per-community linear); 2 communities × 4 homes ×
+   12 steps on the CPU against the card step by step (linear and DDPG:
+   prices and agent within the CPU tests' tolerances, series within
+   phase 4's); the simplified case with C = 8 over 3 days on both;
 
 then prints the kernels JSON line, the card line and, last, the result
 line.  Per-shape details go to chiprun_out/chip_smoke.json.
@@ -1541,6 +1562,417 @@ def fleet_phase(outputs_dir: str) -> dict:
     return dict(ipm=ipm, community_3=match, reluqp=reluqp, cpu_vs_cuda=fleet_cpu_vs_cuda())
 
 
+# ------------------------------------------------------------- fleet RL
+FRL_STEPS = RL_STEPS     # daily chunks of 24 and 12, as phase 12
+FRL_SHORT_STEPS = 12     # DDPG, per-community: past the shared learner's gate
+FRL_RELUQP_STEPS = 6
+# θ_μ first moves at step 2, with step 1's drda: its update at step t
+# reads the basis of step t - 1's observation, and at step 0 the forecast
+# error is zero here (3 kW a home, the initial guess, is half of this
+# mix's max possible load), so that basis is zero.
+FRL_MPC_STEPS = 3
+# The mpc leg's rl.fleet.mpc_weight (default 0.25): with 2,500 homes a
+# community, drda = -2·err·dagg/norm² is ~1e-7 to 2e-5 (norm, the
+# community's max possible load, is ~1.5e4 kW), so at the default weight
+# the term moves θ_μ by a few float32 ulps (PERF.md, section 6).
+FRL_MPC_WEIGHT = 1e4
+FRL_EVENT_STEPS = 18     # the pack's first DR call (15-17) and tariff shock (17-19)
+FRL_CPU_STEPS = 12       # CPU against the card: 2 communities × 4 homes, H = 4
+FRL_SIMPLIFIED_C = 8
+
+
+def fleet_rl_config(steps: int, agent: str = "linear", solver: str = "ipm",
+                    policy: str = "shared", gradient: str = "score", pack: bool = False,
+                    homes: int = N_HOMES // FLEET_C, communities: int = FLEET_C,
+                    horizon: int = MAIN_HORIZON, mpc_weight: float = 0.25, **tpu) -> dict:
+    """``communities`` communities of ``homes`` homes running only
+    ``run_rl_agg`` for ``steps`` hourly steps from 2015-01-01 00, no
+    weather offset (day 1 is 2015-01-01 for every community): the legacy
+    mix, or the stress_dr_outage pack (``pack``)."""
+    if pack:
+        cfg = scenario_config(homes, horizon, steps, communities, **tpu)
+    else:
+        cfg = rl_config(homes, horizon, steps, agent, **tpu)
+    cfg["fleet"].update(communities=communities, weather_offset_hours=0)
+    cfg["home"]["hems"]["solver"] = solver
+    cfg["simulation"].update(run_rbo_mpc=False, run_rl_agg=True)
+    cfg["rl"]["parameters"]["agent"] = agent
+    cfg["rl"]["fleet"].update(policy=policy, gradient=gradient, mpc_weight=mpc_weight)
+    return cfg
+
+
+def fleet_rl_drive(outputs_dir: str, steps: int, stop=None, resume: bool = False,
+                   **kw) -> dict:
+    """One fleet ``run_rl_agg`` through the public entry point, every
+    launch count reset just before it and read just after."""
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    cfg = fleet_rl_config(steps, **kw)
+    cfg["simulation"]["resume"] = resume
+    agg = Aggregator(cfg, outputs_dir=outputs_dir, device="cuda")
+    agg.stop_after_chunks = stop
+    reset_launches()
+    t0 = time.perf_counter()
+    agg.run()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    case_dir = os.path.join(agg.run_dir, "rl_agg")
+    with open(os.path.join(case_dir, "results.json")) as f:
+        results = json.load(f)
+    rl_data = None
+    if os.path.exists(os.path.join(case_dir, "utility_agent-results.json")):
+        with open(os.path.join(case_dir, "utility_agent-results.json")) as f:
+            rl_data = json.load(f)
+    return dict(agg=agg, results=results, launches=launches, run_s=run_s, rl_data=rl_data)
+
+
+def fleet_rl_checks(run: dict, steps: int, what: str, acted: bool = True) -> dict:
+    """Every home's series complete and finite; each community's reward
+    prices finite and within ±max_rp, and for a run long enough to show
+    the agent act (``acted``) not constant and apart from the other
+    communities' (the exploration noise often clips the price at ±max_rp,
+    so two steps may not differ).  Returns the run's figures, the solve
+    rate per community and day among them."""
+    import numpy as np
+
+    agg = run["agg"]
+    summary, solved = check_results(dict(run["results"]), steps)
+    rp = np.asarray(summary["fleet_rl"]["RP_by_community"])
+    check(rp.shape == (FLEET_C, steps) and bool(np.all(np.isfinite(rp))),
+          f"{what}: RP_by_community {rp.shape} or not finite")
+    check(bool(np.all(np.abs(rp) <= MAX_RP + 1e-9)), f"{what}: RP beyond ±{MAX_RP}")
+    check(not acted or all(len(np.unique(r)) > 1 for r in rp),
+          f"{what}: a community's RP is constant")
+    check(not acted or all(not np.array_equal(rp[a], rp[b]) for a in range(FLEET_C)
+                           for b in range(a)), f"{what}: two communities got the same prices")
+    solved = np.asarray(solved)                       # (homes, steps), all_homes order
+    B = len(agg.all_homes) // FLEET_C
+    rate = {f"c{c}": [float(solved[c * B:(c + 1) * B, d * 24:(d + 1) * 24].mean())
+                      for d in range(-(-steps // 24))] for c in range(FLEET_C)}
+    phase = summary["phase_times"]
+    return dict(communities=FLEET_C, homes=len(agg.all_homes), steps=steps,
+                solve_rate=float(solved.mean()), solve_rate_per_community_day=rate,
+                rp_min=float(rp.min()), rp_max=float(rp.max()),
+                s_per_step=(phase["device_chunks"] + phase["collect"]) / steps,
+                run_s=run["run_s"], launches=run["launches"],
+                launches_per_step={k: v / steps for k, v in run["launches"].items()},
+                mean_iterations=float(np.mean(summary["solver_iterations"])))
+
+
+def fleet_agent_step_figures(policy: str, agent: str) -> dict:
+    """One fleet agent step at C = 4 on the card alone (40 steps in, so
+    every update is live): ms a step over 20 steps between CUDA events,
+    launches a step from torch.profiler's count of the host's launch
+    calls over 2 steps."""
+    import torch
+
+    from dragg_tpu_torch.rl.core import RLObservation
+    from dragg_tpu_torch.rl.fleet import N_EVENT_FEATURES, FleetAgent, FleetObservation
+
+    ag = FleetAgent(fleet_rl_config(FRL_STEPS, agent, policy=policy), FLEET_C, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def obs(k):
+        v = 0.1 * torch.randn(5, FLEET_C, device="cuda", generator=g)
+        return FleetObservation(
+            obs=RLObservation(v[0], v[1], torch.full((FLEET_C,), (k % 24) / 24, device="cuda"),
+                              0.02 * v[3], -v[4] * v[4]),
+            events=torch.rand(FLEET_C, N_EVENT_FEATURES, device="cuda", generator=g),
+            drda=torch.zeros(FLEET_C, device="cuda"))
+
+    carry = ag.carry
+    for k in range(40):
+        carry, _ = ag.scan_step(carry, obs(k))
+    observations = [obs(k) for k in range(40, 60)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for o in observations:
+        carry, _ = ag.scan_step(carry, o)
+    end.record()
+    torch.cuda.synchronize()
+    out = dict(policy=policy, agent=agent, communities=FLEET_C,
+               ms_per_step=start.elapsed_time(end) / len(observations))
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for o in observations[:2]:
+                carry, _ = ag.scan_step(carry, o)
+            torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages() if "LaunchKernel" in e.key}
+        out["launches_per_step"] = sum(calls.values()) / 2
+    except Exception as e:  # the launch count is a figure, not a check
+        out["launches_per_step"] = f"not measured ({type(e).__name__}: {e})"
+    log("fleet agent step on the card: " + json.dumps(out))
+    return out
+
+
+def fleet_rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
+    """2 communities × 4 homes (one PV, one battery, one PV + battery
+    home each), H = 4, FRL_CPU_STEPS one-step chunks of the fleet step,
+    the CPU and the card each from the CPU run's carry (community, agent,
+    environment): prices and agent within the CPU tests' tolerances, the
+    community's series within cpu_vs_cuda_check's, solved flags equal."""
+    import numpy as np
+    import torch
+
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.checkpoint import host_snapshot, tree_map
+    from dragg_tpu_torch.rl.env import init_fleet_env_carry
+    from dragg_tpu_torch.rl.fleet import CommunityFold, FleetAgent, FleetEnvCarry, run_fleet_chunk
+    from dragg_tpu_torch.rl.runner import _rl_settings
+
+    cfg = fleet_rl_config(FRL_CPU_STEPS, agent, homes=4, communities=2, horizon=4,
+                          bucketed="true")
+    cfg["community"].update(homes_pv=1, homes_battery=1, homes_pv_battery=1)
+    side = {}
+    for dev in ("cpu", "cuda"):
+        with tempfile.TemporaryDirectory() as d:
+            agg = Aggregator(cfg, outputs_dir=d, device=dev)
+            agg.get_homes()
+            agg._build_engine()
+        norms = agg._max_possible_load_per_community()
+        side[dev] = (agg.engine, FleetAgent(cfg, 2, device=dev),
+                     torch.as_tensor(norms, dtype=torch.float32, device=dev),
+                     CommunityFold.of(agg.engine))
+    settings = _rl_settings(cfg)
+    carry = (side["cpu"][0].init_state(), side["cpu"][1].carry,
+             FleetEnvCarry(init_fleet_env_carry(4, settings["prev_n"], norms, "cpu"),
+                           torch.zeros(2)))
+    worst = {"rp": 0.0, "agent": 0.0, "series": {}}
+    for t in range(FRL_CPU_STEPS):
+        eng, ag, nrm, fold = side["cpu"]
+        nxt, got = run_fleet_chunk(eng, ag, settings, nrm, fold, carry, t, 1)
+        eng, ag, nrm, fold = side["cuda"]
+        _, got_c = run_fleet_chunk(eng, ag, settings, nrm, fold,
+                                   tree_map(lambda a: a.to("cuda"), carry), t, 1)
+        (outs, recs, rp, _), (outs_c, recs_c, rp_c, _) = host_snapshot(got), host_snapshot(got_c)
+        check(np.array_equal(outs.correct_solve, outs_c.correct_solve),
+              f"fleet RL CPU vs card ({agent}) t={t}: solved flags differ")
+        for f in outs._fields:
+            if np.asarray(getattr(outs, f)).dtype.kind == "f":
+                worst["series"][f] = max(worst["series"].get(f, 0.0), float(np.max(np.abs(
+                    getattr(outs, f) - getattr(outs_c, f)), initial=0.0)))
+        worst["rp"] = max(worst["rp"], float(np.max(np.abs(rp - rp_c))))
+        for a, b in zip(recs, recs_c):
+            worst["agent"] = max(worst["agent"], float(
+                np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-30)))
+        carry = nxt
+    check(max(worst["series"].values()) <= ENGINE_CPU_CUDA_ATOL and worst["rp"] <= RL_RP_ATOL
+          and worst["agent"] <= RL_AGENT_REL,
+          f"fleet RL CPU vs card ({agent}): differences {worst} beyond the tolerances")
+    log(f"fleet RL CPU vs card, step by step ({agent}, 2 × 4 homes, H = 4): "
+        + json.dumps(worst))
+    return worst
+
+
+def fleet_rl_simplified_check() -> dict:
+    """The fleet's ``run_rl_simplified`` with C = 8 over a 3-day window,
+    the card against the CPU: the Summary's series (fleet_rl included)
+    and the agent's within the CPU tests' tolerances."""
+    import numpy as np
+
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = community_config(N_HOMES // FLEET_C, MAIN_HORIZON, RL_SIMPLIFIED_END)
+        cfg["simulation"].update(run_rbo_mpc=False, run_rl_simplified=True)
+        cfg["fleet"]["communities"] = FRL_SIMPLIFIED_C
+        with tempfile.TemporaryDirectory() as d:
+            agg = Aggregator(cfg, outputs_dir=d, device=dev)
+            agg.run()
+            case = os.path.join(agg.run_dir, "simplified")
+            with open(os.path.join(case, "results.json")) as f:
+                res = json.load(f)["Summary"]
+            with open(os.path.join(case, "utility_agent-results.json")) as f:
+                out[dev] = (res, json.load(f))
+    (res, data), (res_c, data_c) = out["cpu"], out["cuda"]
+    worst = {}
+    for key, tol, a, b in (
+            *((k, RL_SIMPLIFIED_REL, res[k], res_c[k])
+              for k in ("p_grid_aggregate", "RP", "p_grid_setpoint", "agg_cost")),
+            *((k, RL_SIMPLIFIED_REL, res["fleet_rl"][k], res_c["fleet_rl"][k])
+              for k in ("RP_by_community", "setpoint_by_community")),
+            *((k, RL_AGENT_REL, data[k], data_c[k]) for k in data if k != "parameters")):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(a.shape == b.shape, f"fleet simplified {key}: shape {b.shape}")
+        worst[key] = float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-30))
+        check(worst[key] <= tol, f"fleet simplified, card vs CPU: {key} differs by "
+              f"{worst[key]:.3g}")
+    check(np.asarray(res_c["fleet_rl"]["RP_by_community"]).shape == (FRL_SIMPLIFIED_C, 72),
+          "fleet simplified: not 8 communities × 72 steps")
+    log("fleet RL simplified (C = 8, 72 steps), card vs CPU: " + json.dumps(worst))
+    return dict(communities=FRL_SIMPLIFIED_C, steps=72, rel_differences=worst)
+
+
+def mpc_route_errors() -> dict:
+    """``rl.fleet.gradient = "mpc"`` on a kernel route raises at
+    construction, before any launch: ``band_kernel = "auto"`` (the IPM on
+    the card) and ``iter_kernel = "pallas"`` (ReLU-QP)."""
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    out = {}
+    reset_launches()
+    for key, solver, tpu in (("tpu.band_kernel", "ipm", {}),
+                             ("tpu.iter_kernel", "reluqp", {"iter_kernel": "pallas"})):
+        cfg = fleet_rl_config(FRL_MPC_STEPS, solver=solver, gradient="mpc", **tpu)
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                Aggregator(cfg, outputs_dir=d, device="cuda").run()
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+        check(raised is not None and "rl.fleet.gradient" in raised and key in raised,
+              f"mpc on the {key} kernel route: {raised!r}")
+        out[key] = raised
+    check(all(v == 0 for v in launch_counts().values()),
+          f"mpc route errors: kernels launched {launch_counts()}")
+    log("mpc on kernel routes raises before any launch: " + json.dumps(out))
+    return out
+
+
+def fleet_rl_phase(outputs_dir: str, rl: dict) -> dict:
+    """Phase 14: the fleet form of the RL cases (see the module
+    docstring).  ``rl`` is phase 12's figures."""
+    import numpy as np
+
+    from dragg_tpu_torch.rl.fleet import FLEET_STATE_SCALARS, fleet_params_from_config
+
+    out = {}
+    t_phase = time.perf_counter()
+    main = fleet_rl_drive(os.path.join(outputs_dir, "frl"), FRL_STEPS)
+    lin = fleet_rl_checks(main, FRL_STEPS, "fleet rl_agg (linear)")
+    day1 = [v[0] for v in lin["solve_rate_per_community_day"].values()]
+    check(min(day1) >= 0.99, f"fleet rl_agg (linear): day-1 solve rates {day1}")
+    ln = main["launches"]
+    check(ln["banded_cholesky_t"] > 0 and ln["refined_banded_solve_t"] > 0
+          and ln["factor_refined_solve_t"] == 0 and ln[WINDOW] == 0,
+          f"fleet rl_agg (linear) did not run the split route's kernels alone: {ln}")
+    # The shared learner refits once the replay holds more than
+    # learner_batch transitions, C a step: from step ⌊B / C⌋ + 1.  The
+    # recorded column alternates, so a column is compared two steps apart.
+    lb = fleet_params_from_config(main["agg"].config, FLEET_C).learner_batch
+    first = lb // FLEET_C + 1
+    tq = np.asarray(main["rl_data"]["theta_q"])
+    check(all(np.array_equal(tq[k], tq[k - 2]) for k in range(2, first)),
+          "fleet rl_agg (linear): θ_q moved before the shared learner's first refit")
+    check(all(not np.array_equal(tq[k], tq[k - 2]) for k in range(first, FRL_STEPS)),
+          f"fleet rl_agg (linear): the ridge refit did not run from step {first}")
+    lin.update(first_refit_step=first, phase12_s_per_step=rl["linear"]["s_per_step"])
+    log(f"fleet rl_agg (shared linear, 4 × 2,500 homes, {FRL_STEPS} steps): " + json.dumps(lin))
+    out["linear"] = lin
+
+    part = fleet_rl_drive(os.path.join(outputs_dir, "frl-res"), FRL_STEPS, stop=1)
+    ckpt = part["agg"]._latest_checkpoint_dir()
+    check(part["agg"].timestep == 24 and ckpt is not None,
+          "fleet rl_agg stopped after one chunk left no checkpoint")
+    with open(os.path.join(ckpt, "fleet_rl.json")) as f:
+        saved = np.asarray(json.load(f)["rps"])
+    want_rp = np.asarray(main["results"]["Summary"]["fleet_rl"]["RP_by_community"]).T
+    check(np.array_equal(saved[:24], want_rp[:24]),
+          "fleet rl_agg stopped: fleet_rl.json's prices differ from the run's")
+    res = fleet_rl_drive(os.path.join(outputs_dir, "frl-res"), FRL_STEPS, resume=True)
+    check(res["agg"].resumed_from is not None, "fleet rl_agg did not resume")
+    same_results(res["results"], main["results"], "fleet rl_agg stopped and resumed")
+    check(res["results"]["Summary"]["fleet_rl"] == main["results"]["Summary"]["fleet_rl"],
+          "fleet rl_agg resumed: the fleet_rl block differs")
+    check(res["rl_data"] == main["rl_data"], "fleet rl_agg resumed: rl_data differs")
+    out["resume"] = {what: dict(run_s=run["run_s"], launches=run["launches"])
+                     for what, run in (("stopped", part), ("resumed", res))}
+    log("fleet rl_agg stopped after chunk 1 and resumed: bit-equal; " + json.dumps(out["resume"]))
+
+    dd = fleet_rl_drive(os.path.join(outputs_dir, "frl-ddpg"), FRL_SHORT_STEPS, agent="ddpg",
+                        band_fused=True)
+    ddpg = fleet_rl_checks(dd, FRL_SHORT_STEPS, "fleet rl_agg (DDPG)")
+    ln = dd["launches"]
+    check(ln["factor_refined_solve_t"] > 0 and ln["banded_cholesky_t"] == 0,
+          f"fleet rl_agg (DDPG) did not run the fused route: {ln}")
+    # Frozen while the replay holds fewer than learner_batch transitions,
+    # then the actor moves (policy_delay 2: at even steps).
+    gate = -(-lb // FLEET_C)
+    norms = [r[0] for r in dd["rl_data"]["theta_mu"]]
+    check(len(set(norms[:gate])) == 1 and norms[gate] != norms[gate - 1],
+          f"fleet rl_agg (DDPG): actor norms {norms} (frozen to step {gate - 1}, then moving)")
+    ddpg["actor_first_moves_at_step"] = gate
+    log(f"fleet rl_agg (shared DDPG, fused band route, {FRL_SHORT_STEPS} steps): "
+        + json.dumps(ddpg))
+    out["ddpg"] = ddpg
+
+    pc = fleet_rl_drive(os.path.join(outputs_dir, "frl-pc"), FRL_SHORT_STEPS,
+                        policy="per_community")
+    per = fleet_rl_checks(pc, FRL_SHORT_STEPS, "fleet rl_agg (per-community linear)")
+    theta = pc["agg"].agent.carry.theta_mu.cpu().numpy()
+    check(theta.shape[0] == FLEET_C and len({r.tobytes() for r in theta}) == FLEET_C,
+          "fleet rl_agg (per-community): the communities' policies are not apart")
+    log(f"fleet rl_agg (per-community linear, {FRL_SHORT_STEPS} steps): " + json.dumps(per))
+    out["per_community"] = per
+
+    rq = fleet_rl_drive(os.path.join(outputs_dir, "frl-reluqp"), FRL_RELUQP_STEPS,
+                        solver="reluqp", iter_kernel="pallas", precision="f32")
+    reluqp = fleet_rl_checks(rq, FRL_RELUQP_STEPS, "fleet rl_agg (ReLU-QP)")
+    ln = rq["launches"]
+    check(ln[WINDOW] > 0 and all(v == 0 for k, v in ln.items() if k != WINDOW),
+          f"fleet rl_agg (ReLU-QP) did not run the fused window alone: {ln}")
+    log(f"fleet rl_agg (ReLU-QP, fused window, {FRL_RELUQP_STEPS} steps): " + json.dumps(reluqp))
+    out["reluqp"] = reluqp
+
+    out["mpc_route_errors"] = mpc_route_errors()
+    mpc = {}
+    for grad in ("score", "mpc"):
+        run = fleet_rl_drive(os.path.join(outputs_dir, f"frl-{grad}"), FRL_MPC_STEPS,
+                             solver="reluqp", iter_kernel="lax", gradient=grad,
+                             mpc_weight=FRL_MPC_WEIGHT)
+        mpc[grad] = fleet_rl_checks(run, FRL_MPC_STEPS, f"fleet rl_agg (ReLU-QP lax, {grad})",
+                                    acted=False)
+        check(all(v == 0 for v in run["launches"].values()),
+              f"fleet rl_agg ({grad}, lax route) launched a kernel: {run['launches']}")
+        mpc[grad]["theta_mu"] = run["agg"].agent.carry.theta_mu.cpu().numpy()
+        mpc[grad]["drda"] = run["agg"].fleet_env.drda.cpu().numpy()
+    drda = mpc["mpc"]["drda"]
+    check(bool(np.all(np.isfinite(drda))) and bool(np.any(drda != 0)),
+          f"fleet rl_agg (mpc): drda {drda}")
+    check(bool(np.all(mpc["score"]["drda"] == 0)), "fleet rl_agg (score): drda not zero")
+    moved = float(np.max(np.abs(mpc["mpc"]["theta_mu"] - mpc["score"]["theta_mu"])))
+    check(moved > 0, "fleet rl_agg (mpc): θ_μ equals the score gradient's")
+    for grad in mpc:
+        mpc[grad]["theta_mu"] = mpc[grad]["theta_mu"].tolist()
+        mpc[grad]["drda"] = mpc[grad]["drda"].tolist()
+    mpc["theta_mu_max_abs_difference"] = moved
+    log("fleet rl_agg, mpc against score gradient (ReLU-QP lax route): "
+        + json.dumps({"drda": mpc["mpc"]["drda"], "theta_mu_difference": moved,
+                      "s_per_step": {g: mpc[g]["s_per_step"] for g in ("score", "mpc")}}))
+    out["mpc"] = mpc
+
+    ev_run = fleet_rl_drive(os.path.join(outputs_dir, "frl-pack"), FRL_EVENT_STEPS, pack=True)
+    events = event_checks(ev_run, FRL_EVENT_STEPS, "fleet rl_agg under the pack")
+    carry = ev_run["agg"].agent.carry
+    feats = carry.mem_s[:(FRL_EVENT_STEPS - 1) * FLEET_C, 4:FLEET_STATE_SCALARS].cpu().numpy()
+    check(bool(np.all(np.any(feats != 0, axis=1))),
+          "fleet rl_agg under the pack: a step's event features are all zero")
+    events.update(event_feature_max=feats.max(axis=0).tolist(),
+                  event_feature_min=feats.min(axis=0).tolist())
+    log(f"fleet rl_agg under the pack ({FRL_EVENT_STEPS} steps): " + json.dumps(events))
+    out["events"] = events
+
+    out["agent_step"] = [fleet_agent_step_figures(p, a) for p, a in
+                         (("shared", "linear"), ("shared", "ddpg"),
+                          ("per_community", "linear"))]
+    out["cpu_vs_cuda"] = {a: fleet_rl_stepwise_cpu_vs_cuda(a) for a in ("linear", "ddpg")}
+    out["simplified"] = fleet_rl_simplified_check()
+    out["launches"] = {
+        "banded_cholesky_t": main["launches"]["banded_cholesky_t"],
+        "refined_banded_solve_t": main["launches"]["refined_banded_solve_t"],
+        "factor_refined_solve_t": dd["launches"]["factor_refined_solve_t"],
+        WINDOW: rq["launches"][WINDOW]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet RL: {lin['s_per_step']:.4f} s a step (phase 12, one community: "
+        f"{rl['linear']['s_per_step']:.4f}); launches {json.dumps(out['launches'])}; "
+        f"phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1615,6 +2047,7 @@ def main() -> int:
         xla = xla_route_check()
         rl = rl_phase(d, stats)
         fleet = fleet_phase(d)
+        fleet_rl = fleet_rl_phase(d, rl)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -1682,6 +2115,7 @@ def main() -> int:
             launches_resolve=resolve["ipm"]["resolve"]["launches"][name],
             launches_rl=launches_rl[name],
             launches_fleet=launches_fleet[name],
+            launches_fleet_rl=fleet_rl["launches"][name],
             grid_block=dict(grid_block(grid_rows, name),
                             max_abs_err=kern_grid["max_abs_err"][name]),
         ))
@@ -1702,6 +2136,7 @@ def main() -> int:
         launches_rl=launches_rl[WINDOW],
         shapes=[[r["bucket"], r["m"], r["n"], r["B"]] for r in rows],
         launches_fleet=launches_fleet[WINDOW],
+        launches_fleet_rl=fleet_rl["launches"][WINDOW],
         grid_block=dict(grid_block(win_grid["per_shape"]), max_abs_err=win_grid["max_abs_err"]),
     ))
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
@@ -1711,7 +2146,7 @@ def main() -> int:
                    "main_path": stats, "main_path_reluqp": rstats, "routes": routes,
                    "routes_h48": routes48, "resume_pipeline": resume, "resolve": resolve,
                    "band_kernel_xla": xla, "rl": rl, "kernels_grid": kern_grid,
-                   "window_grid": win_grid, "fleet": fleet}, f, indent=1)
+                   "window_grid": win_grid, "fleet": fleet, "fleet_rl": fleet_rl}, f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,9 @@ A fleet (``fleet.communities > 1``) runs C communities, each drawn with
 its own seed and seeing its own weather offset, in one engine; the home
 list and results.json are community-major.  A ``[scenarios]`` pack
 expands into the home mix and the event timeline before anything reads
-them.  Telemetry, the sharded mesh and the RL cases of a fleet raise
-NotImplementedError naming their config key.
+them; a fleet's RL cases train one policy (or one per community) on all
+C communities (:mod:`dragg_tpu_torch.rl.fleet`).  Telemetry and the
+sharded mesh raise NotImplementedError naming their config key.
 """
 
 from __future__ import annotations
@@ -170,6 +171,7 @@ class Aggregator:
         self.extra_summary: dict = {}  # case-specific Summary additions
         self.summary_only_case = False  # results.json without per-home blocks
         self.agent = None  # the RL agent of the last RL case run
+        self.fleet_env = None  # a fleet RL run's environment carry after its last step
         self.collector: SeriesCollector | None = None
         self._home_static: dict = {}
         self.version = self.config["simulation"].get("named_version", "test")
@@ -186,13 +188,17 @@ class Aggregator:
         self.stop_after_chunks: int | None = None
 
     def _check_rl_fleet(self) -> None:
-        """The RL cases run one community here; a fleet's raise."""
+        """A fleet's RL cases: the ``[rl.fleet]`` table's ValueErrors, and
+        for ``run_rl_agg`` under ``gradient = "mpc"`` a kernel route's
+        (``rl.fleet.check_mpc_route``), before anything runs."""
+        from dragg_tpu_torch.rl.fleet import check_mpc_route, fleet_params_from_config
+
         sim = self.config["simulation"]
-        for case in ("run_rl_agg", "run_rl_simplified"):
-            if self.n_communities > 1 and sim.get(case, False):
-                raise NotImplementedError(
-                    f"fleet.communities = {self.n_communities} with simulation.{case}: "
-                    "the fleet form of the RL cases is not ported yet")
+        if self.n_communities > 1 and (sim.get("run_rl_agg", False)
+                                       or sim.get("run_rl_simplified", False)):
+            fleet_params_from_config(self.config, self.n_communities)
+            if sim.get("run_rl_agg", False):
+                check_mpc_route(self.config, self.device.type)
 
     # ----------------------------------------------------------- population
     @property
@@ -381,12 +387,17 @@ class Aggregator:
     def _max_possible_load(self) -> float:
         """Sum of each home's max simultaneous load (dragg/mpc_calc.py:191),
         summed per community first."""
+        return float(self._max_possible_load_per_community().sum())
+
+    def _max_possible_load_per_community(self) -> np.ndarray:
+        """(C,) max possible load per community (the fleet RL observation's
+        normalizers); ``all_homes`` is community-major, so community c is
+        the c-th block of B homes."""
         C = self.n_communities
         B = len(self.all_homes) // C
-        per_community = np.array([sum(
+        return np.array([sum(
             max(float(h["hvac"]["p_c"]), float(h["hvac"]["p_h"])) + float(h["wh"]["p"])
             for h in self.all_homes[c * B:(c + 1) * B]) for c in range(C)])
-        return float(per_community.sum())
 
     # ------------------------------------------------------------ checkpoint
     def _checkpoint_root(self) -> str:
@@ -437,13 +448,14 @@ class Aggregator:
         the community count and the event timeline's content digest what
         the state and a step mean, so a config change between runs starts
         afresh instead of failing later in a shape check or running on.
-        Fleet RL and several processes are not in this package, so
-        ``rl_fleet`` is None and ``process_count`` is 1.  An RL case adds
-        ``rl``, what sizes its
-        agent's and environment's carries (the core, its critic count or
-        width, the setpoint window), a key the JAX package does not write:
-        a config change there starts afresh too, where the JAX package's
-        single-community run would fail in the leaf check."""
+        ``rl_fleet`` is what sizes a fleet RL run's carries
+        (:meth:`_rl_fleet_shape`); several processes are not in this
+        package, so ``process_count`` is 1.  A single community's RL case
+        adds ``rl``, what sizes its agent's and environment's carries (the
+        core, its critic count or width, the setpoint window), a key the
+        JAX package does not write: a config change there starts afresh
+        too, where the JAX package's single-community run would fail in
+        the leaf check."""
         eng = self.engine
         shape = {
             "num_timesteps": self.num_timesteps,
@@ -458,10 +470,10 @@ class Aggregator:
             "horizon": int(self.config["home"]["hems"]["prediction_horizon"]),
             "state_rev": 2,
             "events": timeline_digest(eng.events) if eng is not None else None,
-            "rl_fleet": None,
+            "rl_fleet": self._rl_fleet_shape(),
             "process_count": 1,
         }
-        if self.case == "rl_agg":
+        if self.case == "rl_agg" and self.n_communities == 1:
             p = self.config["rl"]["parameters"]
             kind = str(p.get("agent", "linear"))
             core_shape = (int(self.config.get("tpu", {}).get("ddpg_hidden", 64))
@@ -469,6 +481,26 @@ class Aggregator:
             shape["rl"] = [kind, core_shape,
                            int(self.config["agg"].get("rl", {}).get("prev_timesteps", 12))]
         return shape
+
+    def _rl_fleet_shape(self) -> list | None:
+        """The fleet RL run-shape key, the JAX package's (None without a
+        fleet RL case): the policy layout and every setting that sizes a
+        carry leaf (learner batch, gradient, event features, the DDPG
+        width or the critic count, the setpoint window)."""
+        from dragg_tpu_torch.rl.fleet import fleet_params_from_config
+
+        sim = self.config["simulation"]
+        if self.n_communities == 1 or not (sim.get("run_rl_agg", False)
+                                           or sim.get("run_rl_simplified", False)):
+            return None
+        fp = fleet_params_from_config(self.config, self.n_communities)
+        p = self.config["rl"]["parameters"]
+        kind = str(p.get("agent", "linear"))
+        core_shape = (int(self.config.get("tpu", {}).get("ddpg_hidden", 64))
+                      if kind == "ddpg" else (2 if p.get("twin_q", True) else 1))
+        prev_n = int(self.config["agg"].get("rl", {}).get("prev_timesteps", 12))
+        return [fp.policy, kind, fp.learner_batch, fp.gradient,
+                bool(fp.event_features), core_shape, prev_n]
 
     def try_resume(self, template_state):
         """(state, t) from the latest complete checkpoint when

@@ -220,8 +220,9 @@ _DEFAULT: dict[str, Any] = {
             "solver": "ipm",
         },
     },
-    # The RL price-signal agent (one community; fleet training, rl.fleet,
-    # is not ported: an RL case with fleet.communities > 1 raises).
+    # The RL price-signal agent; rl.fleet applies with
+    # fleet.communities > 1 (dragg_tpu_torch/rl/fleet.py).  gradient =
+    # "mpc" runs on the plain routes only (rl.fleet.check_mpc_route).
     "rl": {
         "utility": {"action_space": [-0.02, 0.02]},
         "parameters": {

@@ -59,21 +59,22 @@ def agent_carry_from_numpy(fields: dict, device):
 def _net_from_flax(variables: dict, device) -> dict:
     """flax's ``{"params": {"Dense_i": {"kernel": (in, out), "bias"}}}`` →
     the port's ``nn.Linear`` weights ``{"l<i>.weight": (out, in),
-    "l<i>.bias"}``."""
+    "l<i>.bias"}`` (a per-community stack keeps its leading axis)."""
     layers = variables["params"]
     out = {}
     for i in range(len(layers)):
         dense = layers[f"Dense_{i}"]
         out[f"l{i}.bias"] = to_tensor(dense["bias"], device)
-        out[f"l{i}.weight"] = to_tensor(np.asarray(dense["kernel"]).T, device)
+        out[f"l{i}.weight"] = to_tensor(np.swapaxes(np.asarray(dense["kernel"]), -1, -2),
+                                        device)
     return out
 
 
-def ddpg_carry_from_numpy(fields: dict, device):
-    """A ``DDPGCarry._asdict()`` of numpy arrays (flax weights, Adam states
-    as ``(mu, nu, count)``) → a DDPGCarry of tensors, the weights and
-    their Adam moments in ``nn.Linear``'s layout."""
-    from dragg_tpu_torch.rl.neural import AdamState, DDPGCarry
+def _ddpg_fields(cls, fields: dict, device):
+    """A DDPG carry of class ``cls`` from its numpy fields: the six
+    networks and the three Adam states ``(mu, nu, count)`` in
+    ``nn.Linear``'s layout, every other field a tensor."""
+    from dragg_tpu_torch.rl.neural import AdamState
 
     nets = ("actor", "critic1", "critic2", "t_actor", "t_critic1", "t_critic2")
     kw = {k: _net_from_flax(fields[k], device) for k in nets}
@@ -81,17 +82,53 @@ def ddpg_carry_from_numpy(fields: dict, device):
         mu, nu, count = fields[k]
         kw[k] = AdamState(mu=_net_from_flax(mu, device), nu=_net_from_flax(nu, device),
                           count=to_tensor(count, device))
-    for k in DDPGCarry._fields:
+    for k in cls._fields:
         if k not in kw:
             kw[k] = to_tensor(fields[k], device)
-    return DDPGCarry(**kw)
+    return cls(**kw)
+
+
+def ddpg_carry_from_numpy(fields: dict, device):
+    """A ``DDPGCarry._asdict()`` of numpy arrays (flax weights, Adam states
+    as ``(mu, nu, count)``) → a DDPGCarry of tensors, the weights and
+    their Adam moments in ``nn.Linear``'s layout.  A per-community stack
+    (leading C axis on every leaf) converts alike."""
+    from dragg_tpu_torch.rl.neural import DDPGCarry
+
+    return _ddpg_fields(DDPGCarry, fields, device)
 
 
 def env_carry_from_numpy(fields: dict, device):
     """An ``EnvCarry._asdict()`` of numpy arrays (its tracker a
-    one-field tuple) → an EnvCarry of tensors."""
+    one-field tuple) → an EnvCarry of tensors; a fleet's (C,) leaves
+    alike."""
     from dragg_tpu_torch.rl.env import EnvCarry, SetpointTracker
 
     kw = {k: to_tensor(fields[k], device) for k in EnvCarry._fields if k != "tracker"}
     (tracked,) = fields["tracker"]
     return EnvCarry(**kw, tracker=SetpointTracker(to_tensor(tracked, device)))
+
+
+def fleet_linear_carry_from_numpy(fields: dict, device):
+    """A ``FleetLinearCarry._asdict()`` of numpy arrays → the port's."""
+    from dragg_tpu_torch.rl.fleet import FleetLinearCarry
+
+    return FleetLinearCarry(**{k: to_tensor(fields[k], device)
+                               for k in FleetLinearCarry._fields})
+
+
+def fleet_ddpg_carry_from_numpy(fields: dict, device):
+    """A ``FleetDDPGCarry._asdict()`` of numpy arrays (flax ``(in, out)``
+    kernels) → the port's, in ``nn.Linear``'s ``(out, in)`` layout."""
+    from dragg_tpu_torch.rl.fleet import FleetDDPGCarry
+
+    return _ddpg_fields(FleetDDPGCarry, fields, device)
+
+
+def fleet_env_carry_from_numpy(fields: dict, device):
+    """A ``FleetEnvCarry`` as ``{"env": EnvCarry._asdict(), "drda": (C,)}``
+    of numpy arrays → the port's."""
+    from dragg_tpu_torch.rl.fleet import FleetEnvCarry
+
+    return FleetEnvCarry(env=env_carry_from_numpy(fields["env"], device),
+                         drda=to_tensor(fields["drda"], device))

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from dragg_tpu_torch.ops.cuda_lib import launch, lib, ptr
+from dragg_tpu_torch.ops.dual import has_tangent, primal, with_zero_tangents
 from dragg_tpu_torch.ops.precision import f32_guard, mxu_einsum
 
 # Kernel launches since the last reset: the wrapper adds one exactly where
@@ -123,17 +124,23 @@ def iterate(A, Sinv, Dinv, w, qs, bs, ls, us, rho, state, *, k: int, sigma: floa
             alpha: float, precision: str = "f32"):
     """k solver iterations from ``state = (x, z, nu, y)``: the three
     contractions at the hot-loop ``precision``, everything elementwise
-    float32."""
+    float32.  Under forward-mode AD every operand carries a tangent, zero
+    where it had none (``ops/dual.py``)."""
     x, z, nu, y = state
     rho_c = rho[:, None]
+    beta = 1.0 - alpha
+    if has_tangent(A, Sinv, Dinv, w, qs, bs, ls, us, rho_c, *state):
+        (A, Sinv, Dinv, w, qs, bs, ls, us, rho_c, x, z, nu, y, sigma, alpha,
+         beta) = with_zero_tangents(A, Sinv, Dinv, w, qs, bs, ls, us, rho_c, x, z, nu, y,
+                                    sigma, alpha, beta, like=qs)
     for _ in range(k):
         rhs = sigma * x - qs + w * (rho_c * z - y)
         t = mxu_einsum("bmn,bn->bm", A, Dinv * rhs, precision=precision) - bs
         nu = mxu_einsum("bmn,bn->bm", Sinv, t, precision=precision)
         x_t = Dinv * (rhs - mxu_einsum("bmn,bm->bn", A, nu, precision=precision))
         z_t = w * x_t
-        x = alpha * x_t + (1.0 - alpha) * x
-        zc = alpha * z_t + (1.0 - alpha) * z
+        x = alpha * x_t + beta * x
+        zc = alpha * z_t + beta * z
         z_new = torch.minimum(torch.maximum(zc + y / rho_c, ls), us)
         y = y + rho_c * (zc - z_new)
         z = z_new
@@ -168,7 +175,9 @@ def fused_window_plain(A, Sinv, Dinv, w, qs, bs, ls, us, rho, x, z, nu, y,
     ``iter_kernel = "lax"`` route."""
     state = iterate(A, Sinv, Dinv, w, qs, bs, ls, us, rho, (x, z, nu, y), k=k,
                     sigma=sigma, alpha=alpha, precision=precision)
-    return state, residual_maxima(A, w, qs, bs, e_eq, e_box, cd, p_diag, state)
+    # The residuals decide control flow only: no tangent.
+    return state, residual_maxima(*map(primal, (A, w, qs, bs, e_eq, e_box, cd, p_diag)),
+                                  tuple(map(primal, state)))
 
 
 def _check(args) -> tuple[int, int, int]:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from dragg_tpu_torch.ops import iter_kernels
+from dragg_tpu_torch.ops.dual import primal
 from dragg_tpu_torch.ops.admm import (
     ADMMSolution,
     _pad_gather,
@@ -263,8 +264,11 @@ def _reluqp_impl(
         return Sinv_bank[home, idx]
 
     def residuals(*state):
-        res = iter_kernels.residual_maxima(A_dense, w, qs, bs, e_eq, e_box, cd, p_diag,
-                                           state)
+        # Control quantities: computed on primal values under forward-mode
+        # AD (ops/dual.py), as every certificate below.
+        res = iter_kernels.residual_maxima(
+            *map(primal, (A_dense, w, qs, bs, e_eq, e_box, cd, p_diag)),
+            tuple(map(primal, state)))
         return (*res, converged(*res))
 
     def converged(r_prim, r_dual, p_sc, d_sc):
@@ -273,8 +277,9 @@ def _reluqp_impl(
 
     def primal_infeasible(dnu, dy_box):
         """OSQP §3.4 certificate on the window's dual-change direction."""
-        dnu_u = e_eq * dnu / c
-        dy_box_u = e_box * dy_box / c
+        c_p = primal(c)
+        dnu_u = e_eq * primal(dnu) / c_p
+        dy_box_u = e_box * primal(dy_box) / c_p
         At_dy = mvt_raw(dnu_u) + dy_box_u
         norm_dy = torch.maximum(torch.amax(torch.abs(dnu_u), dim=1),
                                 torch.amax(torch.abs(dy_box_u), dim=1))

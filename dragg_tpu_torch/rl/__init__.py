@@ -7,9 +7,10 @@ explicit carry of tensors (:mod:`~dragg_tpu_torch.rl.core`), a DDPG
 twin-Q core with the same step contract (:mod:`~dragg_tpu_torch.rl.neural`,
 ``[rl.parameters] agent = "ddpg"``), the environment side
 (:mod:`~dragg_tpu_torch.rl.env`), the host agent classes
-(:mod:`~dragg_tpu_torch.rl.agent`) and the two RL run modes
-(:mod:`~dragg_tpu_torch.rl.runner`).  The fleet form (many communities)
-is not ported.
+(:mod:`~dragg_tpu_torch.rl.agent`), the two RL run modes
+(:mod:`~dragg_tpu_torch.rl.runner`) and their fleet form, a shared or a
+per-community policy trained on C communities at once
+(:mod:`~dragg_tpu_torch.rl.fleet`).
 """
 
 from dragg_tpu_torch.rl.agent import RLAgent, UtilityAgent

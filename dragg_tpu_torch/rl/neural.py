@@ -103,16 +103,18 @@ class DDPGCarry(NamedTuple):
 _NETS: dict = {}
 
 
-def _nets(hidden: int) -> tuple[MLP, MLP]:
-    """The (actor, critic) modules of width ``hidden`` on the meta device:
-    only their structure is used, the weights come from the carry
-    (``functional_call`` swaps them in for the length of one call, so a
-    module serves one call at a time)."""
-    if hidden not in _NETS:
+def _nets(hidden: int, state_dim: int = STATE_DIM) -> tuple[MLP, MLP]:
+    """The (actor, critic) modules of width ``hidden`` over ``state_dim``
+    state scalars (4; the fleet's 4 + 4 with its event features) on the
+    meta device: only their structure is used, the weights come from the
+    carry (``functional_call`` swaps them in for the length of one call,
+    so a module serves one call at a time)."""
+    if (hidden, state_dim) not in _NETS:
         with torch.device("meta"):
-            _NETS[hidden] = (MLP(STATE_DIM, hidden, ACTION_DIM, tanh_out=True),
-                             MLP(STATE_DIM + ACTION_DIM, hidden, 1))
-    return _NETS[hidden]
+            _NETS[hidden, state_dim] = (
+                MLP(state_dim, hidden, ACTION_DIM, tanh_out=True),
+                MLP(state_dim + ACTION_DIM, hidden, 1))
+    return _NETS[hidden, state_dim]
 
 
 def _init_net(key: torch.Tensor, n_in: int, hidden: int, out: int) -> dict:
@@ -174,12 +176,12 @@ def _scale_action(raw: torch.Tensor, params: DDPGParams) -> torch.Tensor:
 
 
 def _mu(actor: dict, s: torch.Tensor, params: DDPGParams) -> torch.Tensor:
-    a_net, _ = _nets(params.hidden)
+    a_net, _ = _nets(params.hidden, s.shape[-1])
     return _scale_action(functional_call(a_net, actor, (s,))[..., 0], params)
 
 
 def _q(critic: dict, s: torch.Tensor, a: torch.Tensor, params: DDPGParams) -> torch.Tensor:
-    _, c_net = _nets(params.hidden)
+    _, c_net = _nets(params.hidden, s.shape[-1])
     return functional_call(c_net, critic, (torch.cat([s, a[..., None]], dim=-1),))[..., 0]
 
 

@@ -8,7 +8,9 @@ timestep of an RL case is {observation → agent step → reward price →
 community response → setpoint tracking}, run step by step on the
 engine's device: a chunk reads nothing back to the host until it ends,
 when its stacked outputs, agent records, prices and setpoints are copied
-over in one go.  Only one community runs here.
+over in one go.  A fleet (``fleet.communities > 1``) runs the fleet form
+of both cases (:mod:`~dragg_tpu_torch.rl.fleet`); one community stays on
+this module's path.
 """
 
 from __future__ import annotations
@@ -123,7 +125,11 @@ def run_rl_agg(agg) -> None:
     chunks of ``simulation.checkpoint_interval`` with results.json and a
     resumable checkpoint (the agent's and the environment's carries and
     rl_data.json beside the community state) at every boundary before the
-    end."""
+    end.  A fleet runs :func:`~dragg_tpu_torch.rl.fleet.run_rl_agg_fleet`."""
+    if agg.n_communities > 1:
+        from dragg_tpu_torch.rl.fleet import run_rl_agg_fleet
+
+        return run_rl_agg_fleet(agg)
     config = agg.config
     agg.case = "rl_agg"
     if agg.all_homes is None:
@@ -189,7 +195,12 @@ def run_rl_agg(agg) -> None:
 
 def run_rl_simplified(agg) -> None:
     """The RL agent against ``test_response``'s linear model: no MPC
-    community is built; results.json holds only the Summary."""
+    community is built; results.json holds only the Summary.  A fleet runs
+    :func:`~dragg_tpu_torch.rl.fleet.run_rl_simplified_fleet`."""
+    if agg.n_communities > 1:
+        from dragg_tpu_torch.rl.fleet import run_rl_simplified_fleet
+
+        return run_rl_simplified_fleet(agg)
     config = agg.config
     agg.case = "simplified"
     settings = _rl_settings(config)

@@ -3,8 +3,8 @@ on the CPU) against the JAX package's, on the tests/test_engine.py day-run
 community: results.json carries the same keys, and the same series to
 1e-4 absolute (two float32 solvers ~1e-5 apart; see test_torch_engine).
 Also: a CPU run of the port, resumed from a checkpoint too, its RL cases
-(both agents), and a fleet with the shipped scenario pack load neither
-jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
+(both agents), and a fleet with the shipped scenario pack, its RL cases
+under the mpc gradient included, load neither jax nor dragg_tpu; an Aggregator built without a device needs a CUDA
 card; settings outside the port raise; and a community base without a
 weather offset runs the JAX package's homes on its weather."""
 
@@ -119,6 +119,14 @@ def test_cpu_run_loads_no_jax(tmp_path):
         "fl.run()\n"
         "print('FLEET', fl.engine.n_communities, fl.engine.events is not None, "
         "len(fl.all_homes), fl.timestep)\n"
+        # The same fleet's RL cases, the shared policy's mpc gradient
+        # differentiating the engine step (forward-mode AD).
+        "fl.config['simulation'].update(run_rbo_mpc=False, run_rl_agg=True, "
+        "run_rl_simplified=True)\n"
+        "fl.config['rl']['fleet']['gradient'] = 'mpc'\n"
+        "fl.run()\n"
+        "print('FLEET RL', fl.agent.fparams.gradient, fl.agent.fparams.n_communities, "
+        "fl.timestep)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -140,12 +148,13 @@ def test_cpu_run_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
     assert lines[-1] == "LOADED []"
-    assert lines[-2] == "FLEET 2 True 20 3"
-    assert lines[-3] == "RL linear ddpg 3 3"
-    assert lines[-4] == "RESUMED 1 True 3"
-    assert os.path.exists(os.path.join(lines[-5], "baseline", "results.json"))
+    assert lines[-2] == "FLEET RL mpc 2 3"
+    assert lines[-3] == "FLEET 2 True 20 3"
+    assert lines[-4] == "RL linear ddpg 3 3"
+    assert lines[-5] == "RESUMED 1 True 3"
+    assert os.path.exists(os.path.join(lines[-6], "baseline", "results.json"))
     base = str(tmp_path / "out")
-    rl_dir = lines[-5].replace(base, base + "-rl", 1)
+    rl_dir = lines[-6].replace(base, base + "-rl", 1)
     for case in ("baseline", "rl_agg", "simplified"):
         assert os.path.exists(os.path.join(rl_dir, case, "results.json")), case
     for case in ("rl_agg", "simplified"):
@@ -170,10 +179,10 @@ def test_default_device_needs_cuda(tmp_path):
 ])
 def test_out_of_slice_settings_raise(tmp_path, section, key, value):
     """Settings outside the port raise NotImplementedError naming their key:
-    the device trace, telemetry, and an RL case with a fleet.  Fleets, a
-    community base with a weather offset and SPP prices construct as in
-    the JAX package; a pack that is not shipped raises the JAX package's
-    own error."""
+    the device trace and telemetry.  Fleets, a community base with a
+    weather offset, SPP prices and an RL case with a fleet construct as
+    in the JAX package (the last with its ``rl_fleet`` run shape); a pack
+    that is not shipped raises the JAX package's own error."""
     cfg = _day_config()
     cfg[section][key] = value
     if key == "community_base":
@@ -181,9 +190,12 @@ def test_out_of_slice_settings_raise(tmp_path, section, key, value):
         cfg["fleet"]["weather_offset_hours"] = 24
     if key == "run_rl_agg":
         cfg["fleet"]["communities"] = 2
-    if key in ("profile_dir", "enabled", "run_rl_agg"):
-        with pytest.raises(NotImplementedError, match=f"{section}.{key}" if key != "run_rl_agg"
-                           else "fleet.communities = 2 with simulation.run_rl_agg"):
+        got = Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")._run_shape()
+        want = JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))._run_shape()
+        assert got["rl_fleet"] == want["rl_fleet"] is not None
+        return
+    if key in ("profile_dir", "enabled"):
+        with pytest.raises(NotImplementedError, match=f"{section}.{key}"):
             Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
         return
     if key == "pack":

@@ -3,8 +3,9 @@ the CPU: a 2-community run's results.json against the JAX aggregator's
 (the same homes, keys and Summary, the fleet block included; series to
 1e-4, the legacy four-type mix), a community base with a weather offset
 against the JAX aggregator, a fleet run stopped at a checkpoint and
-resumed bit for bit, and the checkpoint's run shape changing with the
-community count and the event timeline."""
+resumed bit for bit, the checkpoint's run shape changing with the
+community count and the event timeline, and a fleet's RL cases
+constructing with the JAX package's ``rl_fleet`` run shape."""
 
 import copy
 import json
@@ -123,7 +124,11 @@ def test_run_shape_follows_communities_and_events(tmp_path):
 
 @pytest.mark.parametrize("case", ["run_rl_agg", "run_rl_simplified"])
 def test_fleet_rl_case_raises(tmp_path, case):
+    """A fleet's RL case no longer raises: it constructs, with the JAX
+    package's ``rl_fleet`` run shape (tests/test_torch_rl_fleet_runner.py
+    runs it)."""
     cfg = _cfg()
     cfg["simulation"][case] = True
-    with pytest.raises(NotImplementedError, match=f"fleet.communities = 2 with simulation.{case}"):
-        Aggregator(cfg, outputs_dir=str(tmp_path), device="cpu")
+    got = Aggregator(cfg, outputs_dir=str(tmp_path), device="cpu")._run_shape()["rl_fleet"]
+    want = JaxAggregator(copy.deepcopy(cfg), outputs_dir=str(tmp_path / "jax"))._run_shape()
+    assert got == want["rl_fleet"] == ["shared", "linear", 32, "score", True, 2, 12]

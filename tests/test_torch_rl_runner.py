@@ -18,7 +18,8 @@ run, for the linear and the DDPG agent.
   (for DDPG the flax kernels transposed), and ``run_shape`` one key more,
   ``rl``; a run stopped after one hourly chunk resumes bit for bit; a
   checkpoint of one agent is not loaded into the other.
-* ``fleet.communities = 2`` with an RL case raises, naming the key.
+* ``fleet.communities = 2`` with an RL case constructs, with the JAX
+  package's ``rl_fleet`` run shape.
 """
 
 import json
@@ -218,8 +219,12 @@ def test_checkpoint_of_another_agent_starts_fresh(tmp_path):
 
 @pytest.mark.parametrize("case", ["run_rl_agg", "run_rl_simplified"])
 def test_rl_fleet_raises(tmp_path, case):
+    """An RL case with ``fleet.communities = 2`` no longer raises: the
+    config constructs on the CPU with the JAX package's fleet RL run shape
+    (tests/test_torch_rl_fleet_runner.py runs it)."""
     cfg = _config("linear", run_rl_agg=False, run_rl_simplified=False)
     cfg["simulation"][case] = True
     cfg["fleet"]["communities"] = 2
-    with pytest.raises(NotImplementedError, match="fleet.communities"):
-        Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+    got = Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")._run_shape()
+    want = JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))._run_shape()
+    assert got["rl_fleet"] == want["rl_fleet"] == ["shared", "linear", 32, "score", True, 2, 12]
