@@ -51,8 +51,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    kernel (launch counts reset just before it), held against the lax
    route within route_check's H = 24 noise bounds;
 9. resume and pipeline: the 10,000-home community in hourly chunks, the
-   interior point over 4 steps with ``fleet.pipeline`` off, on, on
-   stopped after 2 chunks and resumed (``simulation.resume``), on and off
+   interior point over 2 steps with ``fleet.pipeline`` off, on, on
+   stopped after 1 chunk and resumed (``simulation.resume``), on and off
    again, all bit-equal, then ReLU-QP through the fused window stopped after 1 of 2
    chunks and resumed, bit-equal to its uninterrupted run; seconds per
    step, ``phase_times``, checkpoint bytes and write seconds;
@@ -96,7 +96,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    fleet's batch sizes parts as far on the card), flags agreeing on ≥ 98
    % of home-steps and ≥ 85 % of home-steps before their home's first
    flip;
-   the same fleet for 24 steps with ReLU-QP through the fused window,
+   the same fleet for 18 steps with ReLU-QP through the fused window,
    the same event checks; 12 homes (two of each type) × 2 communities
    with inline events, H = 6, 8 steps, the CPU against the card step by
    step, home-step by home-step where the home's bucket stopped below the
@@ -104,7 +104,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    the series within phase 4's 1e-2;
 14. the fleet RL cases: ``run_rl_agg`` on 4 communities × 2,500 homes
    (legacy mix, no weather offset), H = 24: the shared linear agent
-   through the IPM's split route for 36 hourly steps in daily chunks
+   through the IPM's split route for 30 hourly steps in daily chunks
    (solve rate ≥ 0.99 per community on day 1; each community's prices
    finite, within ±max_rp, not constant and apart from the others'; the
    shared ridge refit from step ⌊B/C⌋ + 1 = 9), the same run stopped
@@ -123,9 +123,33 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    12 steps on the CPU against the card step by step (linear and DDPG:
    prices and agent within the CPU tests' tolerances, series within
    phase 4's); the simplified case with C = 8 over 3 days on both;
+15. the run telemetry and the observatory, on by default in every run
+   above: each main-path run's (phases 5 and 6) and the fleet's (phase
+   13, its ev and heat_pump buckets among them) events.jsonl against its
+   results.json (run.start and run.end, one chunk.done a chunk whose
+   solve_rate and solver_iters are the Summary's, one solver.convergence
+   a bucket whose histograms sum to the bucket's homes × steps, one
+   solver.worst whose homes exist and whose largest r_prim is the
+   chunk's r_prim_max, metrics.json with each bucket's conv-iters
+   metric); the 8-home CPU-vs-card runs' (phase 4) solver.convergence
+   records equal or their counts an adjacent bin apart; the kernel route
+   against the lax route at H = 24 (phase 7, run through the aggregator,
+   the kernel route with ``telemetry.forensics``): conv_iters counts an
+   adjacent bin apart on at most 1 % of the home-steps, and a forensic
+   dump a chunk naming solver.worst's homes with their state
+   at the chunk's start; 10,000 homes × 4 hourly steps with the
+   telemetry and the observatory on and off, IPM (split route) and
+   ReLU-QP (the fused window): results.json bit-equal, every kernel
+   launched as often, and one step of each under torch.profiler: the
+   step's launches and device ms, the fold's (its launches are the
+   difference a step), the fold alone timed with CUDA events;
+   ``tpu.profile_dir`` on 1,000 homes × 2 hourly chunks (IPM): the
+   second chunk's Chrome trace holds chol_kernel, refined_solve_kernel
+   and the bus's span;
 
-then prints the kernels JSON line, the card line and, last, the result
-line.  Per-shape details go to chiprun_out/chip_smoke.json.
+then prints the phases line (each phase's seconds), the kernels JSON
+line, the card line and, last, the result line.  Per-shape details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -406,15 +430,16 @@ def highs_check(solver: str) -> None:
     log(f"HiGHS check ({solver}): {n_checked}/{vals.shape[0]} homes within 1 %")
 
 
-def cpu_vs_cuda_check(**tpu) -> None:
+def cpu_vs_cuda_check(**tpu) -> dict:
     """An 8-home, 4 h-horizon, 6-step bucketed engine run on the card
     against the same run on the CPU (plain band versions); ``tpu``
-    overrides ``[tpu]`` keys."""
+    overrides ``[tpu]`` keys.  Returns the two runs' observatory records
+    compared (``convergence_match``)."""
     import numpy as np
 
     from dragg_tpu_torch.aggregator import Aggregator
 
-    res = {}
+    res, conv = {}, {}
     for dev in ("cpu", "cuda"):
         with tempfile.TemporaryDirectory() as d:
             agg = Aggregator(community_config(8, 4, "2015-01-01 06", bucketed="true", **tpu),
@@ -422,6 +447,7 @@ def cpu_vs_cuda_check(**tpu) -> None:
             agg.run()
             with open(os.path.join(agg.run_dir, "baseline", "results.json")) as f:
                 res[dev] = json.load(f)
+            conv[dev] = [r for r in events_of(agg.run_dir) if r["event"] == "solver.convergence"]
     worst = 0.0
     for name, series in res["cpu"].items():
         if name == "Summary":
@@ -434,6 +460,7 @@ def cpu_vs_cuda_check(**tpu) -> None:
                     np.asarray(v) - np.asarray(res["cuda"][name][key])))))
     check(worst < ENGINE_CPU_CUDA_ATOL, f"CPU vs CUDA engine series differ by {worst} ({tpu})")
     log(f"CPU vs CUDA engine check {tpu}: max |difference| {worst:.3g}")
+    return convergence_match(conv["cpu"], conv["cuda"], "CPU vs CUDA (8 homes)")
 
 
 def engine_chunk(n_homes: int, horizon: int, steps: int, device: str,
@@ -567,7 +594,7 @@ def main_path(outputs_dir: str) -> dict:
     import numpy as np
 
     agg, res, launches, seconds = drive(os.path.join(outputs_dir, "split"), band_fused=False)
-    summary, solved = check_results(res)
+    summary, solved = check_results(dict(res))
     check(launches["banded_cholesky_t"] > 0 and launches["refined_banded_solve_t"] > 0,
           f"main path did not launch the split-route kernels: {launches}")
     check(launches["factor_refined_solve_t"] == 0 and launches[WINDOW] == 0,
@@ -584,9 +611,11 @@ def main_path(outputs_dir: str) -> dict:
         run_s=seconds, launches_split=launches,
     )
     log("main path (split): " + json.dumps(stats))
+    stats["stream"] = stream_checks(agg, res, 24, "main path (split)")
 
     # The fused route: the same run, series equal to the split run's.
-    _, res2, launches2, seconds2 = drive(os.path.join(outputs_dir, "fused"), band_fused=True)
+    agg2, res2, launches2, seconds2 = drive(os.path.join(outputs_dir, "fused"), band_fused=True)
+    stream2 = stream_checks(agg2, res2, 24, "main path (fused)")
     phase2 = res2.pop("Summary")["phase_times"]
     check(launches2["factor_refined_solve_t"] > 0 and launches2["banded_cholesky_t"] == 0,
           f"fused route launches: {launches2}")
@@ -595,7 +624,8 @@ def main_path(outputs_dir: str) -> dict:
             if isinstance(v, list):
                 check(v == res[name][key], f"fused route differs from split at {name}.{key}")
     stats.update(launches_fused=launches2, run_s_fused=seconds2,
-                 s_per_step_fused=(phase2["device_chunks"] + phase2["collect"]) / 24)
+                 s_per_step_fused=(phase2["device_chunks"] + phase2["collect"]) / 24,
+                 stream_fused=stream2)
     log(f"main path (fused): launches {launches2}, series equal to the split run's")
     return stats
 
@@ -607,6 +637,7 @@ def reluqp_main_path(outputs_dir: str) -> dict:
 
     agg, res, launches, seconds = drive(os.path.join(outputs_dir, "reluqp"), "reluqp",
                                         iter_kernel="pallas", precision="f32")
+    stream = stream_checks(agg, res, 24, "main path (ReLU-QP)")
     summary, solved = check_results(res)
     check(agg.engine.iter_kernel == "pallas", f"iter_kernel {agg.engine.iter_kernel}")
     check(launches[WINDOW] > 0, f"ReLU-QP main path did not launch {WINDOW}: {launches}")
@@ -620,7 +651,7 @@ def reluqp_main_path(outputs_dir: str) -> dict:
         iterations_per_step=summary["solver_iterations"],
         bank_fallback_count=agg.bank_fallback_total,
         s_per_step=(phase["device_chunks"] + phase["collect"]) / 24,
-        run_s=seconds, launches=launches,
+        run_s=seconds, launches=launches, stream=stream,
     )
     log("main path (ReLU-QP): " + json.dumps(stats))
     return stats
@@ -648,11 +679,18 @@ def route_check() -> dict:
               iterations_kernel=kern["admm_iters"].tolist(),
               iterations_lax=lax["admm_iters"].tolist())
     t0 = time.perf_counter()
-    kern, s = engine_chunk(1000, 24, ROUTE_STEPS_H24, "cuda", bucketed="auto",
-                           iter_kernel="pallas")
-    t1 = time.perf_counter()
-    lax, _ = engine_chunk(1000, 24, ROUTE_STEPS_H24, "cuda", bucketed="auto", iter_kernel="lax")
-    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # Through the aggregator (one chunk, the same steps as run_chunk's),
+        # so the kernel route's run also writes its forensic dump.
+        kern, s, kagg = aggregator_chunk(os.path.join(d, "kern"), 1000, 24, ROUTE_STEPS_H24,
+                                         telemetry={"forensics": True}, bucketed="auto",
+                                         iter_kernel="pallas")
+        t1 = time.perf_counter()
+        lax, _, lagg = aggregator_chunk(os.path.join(d, "lax"), 1000, 24, ROUTE_STEPS_H24,
+                                        bucketed="auto", iter_kernel="lax")
+        t2 = time.perf_counter()
+        telemetry_legs = dict(forensics=forensics_checks(kagg, "route check (kernel route)"),
+                              conv_iters=route_iters_noise(kagg, lagg))
     stats = dict(homes=1000, steps=6, steps_h24=ROUTE_STEPS_H24, horizon_4h_match=h4, horizon=24,
                  kernel_route_s=t1 - t0, lax_route_s=t2 - t1,
                  solve_rate_kernel=float(kern["correct_solve"].mean()),
@@ -660,6 +698,7 @@ def route_check() -> dict:
                  iterations_kernel=kern["admm_iters"].tolist(),
                  iterations_lax=lax["admm_iters"].tolist(), **route_noise(kern, lax, s))
     log("kernel route vs lax route: flip-aware match at H = 4; " + json.dumps(stats))
+    stats["telemetry"] = telemetry_legs
     check(within_noise(stats), f"kernel and lax routes disagree beyond the noise bounds: "
                                f"{stats}")
     return stats
@@ -717,25 +756,28 @@ def h48_route_check() -> dict:
 
 
 # ------------------------------------------- resume, pipeline, resolve
-RESUME_STEPS = 4          # hourly chunks of the IPM resume and pipeline runs
+RESUME_STEPS = 2          # hourly chunks of the IPM resume and pipeline runs
 RESUME_STEPS_RELUQP = 2
 RESOLVE_STEPS = 2
 
 
 def hourly_drive(outputs_dir: str, steps: int, solver: str = "ipm", stop=None,
-                 resume: bool = False, pipeline: bool = True, **tpu) -> dict:
+                 resume: bool = False, pipeline: bool = True, telemetry=None,
+                 n_homes: int = N_HOMES, interval: str = "hourly", **tpu) -> dict:
     """One Aggregator run of the 10,000-home community in hourly chunks
     (a checkpoint after every step), with every launch count reset just
     before it; ``stop`` stops it after that many chunks, ``resume``
-    restores the latest checkpoint.  Returns the aggregator, results.json,
-    the launch counts, the checkpoint writes' seconds and, when stopped,
-    the bytes of the checkpoint left behind."""
+    restores the latest checkpoint; ``telemetry`` overrides ``[telemetry]``
+    keys; ``interval = "daily"`` runs the steps as one chunk.  Returns the
+    aggregator, results.json, the launch counts, the checkpoint writes'
+    seconds and, when stopped, the bytes of the checkpoint left behind."""
     from dragg_tpu_torch.aggregator import Aggregator
 
-    cfg = community_config(N_HOMES, 24, f"2015-01-01 {steps:02d}", bucketed="auto", **tpu)
+    cfg = community_config(n_homes, 24, f"2015-01-01 {steps:02d}", bucketed="auto", **tpu)
     cfg["home"]["hems"]["solver"] = solver
-    cfg["simulation"].update(checkpoint_interval="hourly", resume=resume)
+    cfg["simulation"].update(checkpoint_interval=interval, resume=resume)
     cfg["fleet"]["pipeline"] = pipeline
+    cfg["telemetry"].update(telemetry or {})
     agg = Aggregator(cfg, outputs_dir=outputs_dir, device="cuda")
     agg.stop_after_chunks = stop
     writes = []
@@ -1112,6 +1154,7 @@ def rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
 
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.checkpoint import host_snapshot, tree_map
+    from dragg_tpu_torch.engine import OBS_FIELDS
     from dragg_tpu_torch.rl.agent import UtilityAgent
     from dragg_tpu_torch.rl.env import init_env_carry
     from dragg_tpu_torch.rl.runner import _rl_settings, run_chunk
@@ -1136,7 +1179,8 @@ def rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
         check(np.array_equal(outs.correct_solve, outs_c.correct_solve),
               f"RL CPU vs card ({agent}) t={t}: solved flags differ")
         for f in outs._fields:
-            if np.asarray(getattr(outs, f)).dtype.kind == "f":
+            # The observatory's per-bucket leaves: phase 15 holds them.
+            if np.asarray(getattr(outs, f)).dtype.kind == "f" and f not in OBS_FIELDS:
                 worst["series"][f] = max(worst["series"].get(f, 0.0), float(np.max(np.abs(
                     getattr(outs, f) - getattr(outs_c, f)), initial=0.0)))
         worst["rp"] = max(worst["rp"], float(np.max(np.abs(rp - rp_c))))
@@ -1279,7 +1323,7 @@ def rl_phase(outputs_dir: str, baseline: dict) -> dict:
 # ------------------------------------------------- fleet with scenarios
 FLEET_C = 4              # communities of N_HOMES // FLEET_C homes
 FLEET_STEPS = 42         # a daily chunk and 18 steps: both DR calls and the day-2 outage
-FLEET_RELUQP_STEPS = 24
+FLEET_RELUQP_STEPS = 18  # the first DR call (15-17)
 FLEET_CPU_STEPS = 8
 FLEET_CPU_MIN_COMPARED = 120   # of its 192 home-steps (152 below the cap on the CPU)
 PACK = "stress_dr_outage"
@@ -1497,6 +1541,7 @@ def fleet_cpu_vs_cuda() -> dict:
     import numpy as np
 
     from dragg_tpu_torch.config import default_config
+    from dragg_tpu_torch.engine import OBS_FIELDS
 
     cfg = default_config()
     cfg["community"].update(total_number_homes=12, homes_pv=2, homes_battery=2,
@@ -1518,8 +1563,11 @@ def fleet_cpu_vs_cuda() -> dict:
           f"fleet CPU vs card: {compared} home-steps below the cap")
     check(bool(agree[below].all()), "fleet CPU vs card: solved flags differ below the cap")
     check(float(agree.mean()) >= 0.95, f"fleet CPU vs card: flags agree on {agree.mean():.3f}")
+    # Per-home series only: the observatory's leaves are per bucket (phase
+    # 15 holds them, CPU against the card).
     worst = {f: float(np.max(np.abs(cpu[f][below] - cuda[f][below]), initial=0.0))
-             for f in cpu if cpu[f].dtype.kind == "f" and cpu[f].ndim == 2}
+             for f in cpu if cpu[f].dtype.kind == "f" and cpu[f].ndim == 2
+             and f not in OBS_FIELDS}
     check(max(worst.values()) <= ENGINE_CPU_CUDA_ATOL,
           f"fleet CPU vs card: series differ by {worst}")
     stats = dict(homes=24, steps=FLEET_CPU_STEPS, home_steps=int(below.size),
@@ -1558,12 +1606,17 @@ def fleet_phase(outputs_dir: str) -> dict:
     ln = rq_run["launches"]
     check(ln[WINDOW] > 0 and all(v == 0 for k, v in ln.items() if k != WINDOW),
           f"fleet (ReLU-QP) did not run the fused window alone: {ln}")
-    log("fleet (ReLU-QP, fused window, 24 steps): " + json.dumps(reluqp))
-    return dict(ipm=ipm, community_3=match, reluqp=reluqp, cpu_vs_cuda=fleet_cpu_vs_cuda())
+    log(f"fleet (ReLU-QP, fused window, {FLEET_RELUQP_STEPS} steps): " + json.dumps(reluqp))
+    streams = {"ipm": stream_checks(ipm_run["agg"], ipm_run["results"], FLEET_STEPS,
+                                    "fleet (IPM)"),
+               "reluqp": stream_checks(rq_run["agg"], rq_run["results"], FLEET_RELUQP_STEPS,
+                                       "fleet (ReLU-QP)")}
+    return dict(ipm=ipm, community_3=match, reluqp=reluqp, cpu_vs_cuda=fleet_cpu_vs_cuda(),
+                streams=streams)
 
 
 # ------------------------------------------------------------- fleet RL
-FRL_STEPS = RL_STEPS     # daily chunks of 24 and 12, as phase 12
+FRL_STEPS = 30           # daily chunks of 24 and 6: past the refit (step 9), a resume
 FRL_SHORT_STEPS = 12     # DDPG, per-community: past the shared learner's gate
 FRL_RELUQP_STEPS = 6
 # θ_μ first moves at step 2, with step 1's drda: its update at step t
@@ -1719,6 +1772,7 @@ def fleet_rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
 
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.checkpoint import host_snapshot, tree_map
+    from dragg_tpu_torch.engine import OBS_FIELDS
     from dragg_tpu_torch.rl.env import init_fleet_env_carry
     from dragg_tpu_torch.rl.fleet import CommunityFold, FleetAgent, FleetEnvCarry, run_fleet_chunk
     from dragg_tpu_torch.rl.runner import _rl_settings
@@ -1751,7 +1805,8 @@ def fleet_rl_stepwise_cpu_vs_cuda(agent: str) -> dict:
         check(np.array_equal(outs.correct_solve, outs_c.correct_solve),
               f"fleet RL CPU vs card ({agent}) t={t}: solved flags differ")
         for f in outs._fields:
-            if np.asarray(getattr(outs, f)).dtype.kind == "f":
+            # The observatory's per-bucket leaves: phase 15 holds them.
+            if np.asarray(getattr(outs, f)).dtype.kind == "f" and f not in OBS_FIELDS:
                 worst["series"][f] = max(worst["series"].get(f, 0.0), float(np.max(np.abs(
                     getattr(outs, f) - getattr(outs_c, f)), initial=0.0)))
         worst["rp"] = max(worst["rp"], float(np.max(np.abs(rp - rp_c))))
@@ -1973,6 +2028,327 @@ def fleet_rl_phase(outputs_dir: str, rl: dict) -> dict:
     return out
 
 
+# ----------------------------------------------- telemetry (phase 15)
+AB_STEPS = 4              # hourly steps of each leg of the per_home A/B, one chunk
+PROFILE_HOMES = 1000      # the tpu.profile_dir leg: 1,000 homes × 2 hourly chunks
+FOLD = "observatory.fold"  # the profiler range put around the fold to time it
+
+
+def events_of(run_dir: str) -> list[dict]:
+    """A run's events.jsonl."""
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def stream_checks(agg, results: dict, steps: int, what: str) -> dict:
+    """A finished run's telemetry against its results.json: run.start first
+    and run.end last; metrics.json written; one chunk.done a chunk, each
+    with one solver.convergence a bucket (its ``n_homes`` the bucket's,
+    both histograms summing to the bucket's homes × steps) and one
+    solver.worst, whose homes exist and whose largest r_prim is the
+    chunk's r_prim_max; chunk.done's solve_rate and solver_iters the
+    Summary's over the chunk (to their rounding).  Returns the run's
+    per-bucket histograms summed over its chunks."""
+    import numpy as np
+
+    recs = events_of(agg.run_dir)
+    check(os.path.exists(os.path.join(agg.run_dir, "metrics.json")), f"{what}: no metrics.json")
+    names = [r["event"] for r in recs]
+    check(names[0] == "run.start" and names[-1] == "run.end" and recs[-1]["completed"],
+          f"{what}: the stream does not open with run.start and close with run.end")
+    done = [r for r in recs if r["event"] == "chunk.done"]
+    check([r["t0"] for r in done] == list(range(0, steps, agg.checkpoint_interval)),
+          f"{what}: chunk.done at {[r['t0'] for r in done]}")
+    binfo = agg.engine.bucket_info()
+    solved = np.array([v["correct_solve"] for k, v in results.items() if k != "Summary"])
+    iters = np.asarray(results["Summary"]["solver_iterations"], dtype=np.float64)
+    totals = {b["name"]: {"rprim_hist": np.zeros(18, int), "iters_hist": np.zeros(17, int),
+                          "diverged": 0} for b in binfo}
+    for r in done:
+        t0, t1 = r["t0"], r["t1"]
+        conv = [c for c in recs if c["event"] == "solver.convergence" and c["t0"] == t0]
+        check([c["bucket"] for c in conv] == [b["name"] for b in binfo],
+              f"{what}: chunk {t0}: solver.convergence for {[c['bucket'] for c in conv]}")
+        for c, b in zip(conv, binfo):
+            check(c["n_homes"] == b["n_real"]
+                  and sum(c["rprim_hist"]) == sum(c["iters_hist"]) == b["n_real"] * (t1 - t0),
+                  f"{what}: chunk {t0}, bucket {b['name']}: histograms {c}")
+            tot = totals[b["name"]]
+            tot["rprim_hist"] += np.asarray(c["rprim_hist"])
+            tot["iters_hist"] += np.asarray(c["iters_hist"])
+            tot["diverged"] += c["diverged"]
+        check(abs(r["solve_rate"] - float(solved[:, t0:t1].mean())) <= 5e-5 + 1e-9,
+              f"{what}: chunk {t0}: solve_rate {r['solve_rate']} against the Summary's "
+              f"{float(solved[:, t0:t1].mean())}")
+        check(abs(r["solver_iters"] - float(iters[t0:t1].mean())) <= 0.05 + 1e-9,
+              f"{what}: chunk {t0}: solver_iters {r['solver_iters']}")
+        worst = [w for w in recs if w["event"] == "solver.worst" and w["t0"] == t0]
+        check(len(worst) == 1 and worst[0]["homes"], f"{what}: chunk {t0}: solver.worst {worst}")
+        homes = worst[0]["homes"]
+        check(all(0 <= h["home"] < len(agg.all_homes) for h in homes),
+              f"{what}: chunk {t0}: solver.worst names homes {[h['home'] for h in homes]}")
+        check(max(h["r_prim"] for h in homes) == r["r_prim_max"],
+              f"{what}: chunk {t0}: worst r_prim {max(h['r_prim'] for h in homes)} against "
+              f"r_prim_max {r['r_prim_max']}")
+    with open(os.path.join(agg.run_dir, "metrics.json")) as f:
+        hists = set(json.load(f)["histograms"])
+    want = {f"solver.conv_iters_{b['name']}" for b in binfo}
+    check(want <= hists, f"{what}: metrics.json lacks {want - hists}")
+    return dict(events=len(recs), chunks=len(done),
+                buckets={k: {"rprim_hist": v["rprim_hist"].tolist(),
+                             "iters_hist": v["iters_hist"].tolist(),
+                             "diverged": int(v["diverged"])} for k, v in totals.items()})
+
+
+def adjacent_moves(a, b) -> int | None:
+    """The counts that differ between two histograms of equal total when
+    each of them moved to an adjacent bin, else None (the net flow across
+    each bin boundary leaves no bin with more counts going out than it
+    holds); tests/test_torch_observatory.py holds the same helper."""
+    import numpy as np
+
+    flow = np.cumsum(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    if flow[-1] != 0:
+        return None
+    for i in range(len(flow)):
+        out = max(flow[i], 0.0) + (max(-flow[i - 1], 0.0) if i else 0.0)
+        if out > a[i]:
+            return None
+    return int(np.abs(flow).sum())
+
+
+def convergence_match(ref: list, cmp: list, what: str) -> dict:
+    """Two runs' solver.convergence records: the same buckets and chunks,
+    the same homes and divergence counts, each histogram equal or its
+    counts moved to adjacent bins only; returns how many moved."""
+    check([(r["t0"], r["bucket"], r["n_homes"]) for r in ref]
+          == [(r["t0"], r["bucket"], r["n_homes"]) for r in cmp],
+          f"{what}: the solver.convergence records cover other chunks or buckets")
+    moved = {"rprim_hist": 0, "iters_hist": 0}
+    for a, b in zip(ref, cmp):
+        check(a["diverged"] == b["diverged"],
+              f"{what}: diverged {a['diverged']} vs {b['diverged']}")
+        for key in moved:
+            m = adjacent_moves(a[key], b[key])
+            check(m is not None, f"{what}: {a['bucket']} t0 {a['t0']}: {key} {a[key]} vs {b[key]}")
+            moved[key] += m
+    equal = sum(all(a[k] == b[k] for k in ("rprim_hist", "iters_hist", "diverged"))
+                for a, b in zip(ref, cmp))
+    out = dict(records=len(ref), equal=equal, moved_rprim=moved["rprim_hist"],
+               moved_iters=moved["iters_hist"],
+               observations=sum(sum(r["rprim_hist"]) for r in ref))
+    log(f"{what}: solver.convergence " + json.dumps(out))
+    return out
+
+
+def aggregator_chunk(outputs_dir: str, n_homes: int, horizon: int, steps: int,
+                     solver: str = "reluqp", telemetry=None, **tpu) -> tuple:
+    """``engine_chunk`` through ``Aggregator.run()``: one chunk of ``steps``
+    steps from t = 0 (the same run_chunk), with the chunk's StepOutputs
+    caught as the aggregator collects them.  Returns (outputs as numpy,
+    duty steps s, the aggregator)."""
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    cfg = community_config(n_homes, horizon, f"2015-01-01 {steps:02d}", **tpu)
+    cfg["home"]["hems"]["solver"] = solver
+    cfg["telemetry"].update(telemetry or {})
+    agg = Aggregator(cfg, outputs_dir=outputs_dir, device="cuda")
+    caught = []
+    collect = agg._collect_chunk
+
+    def catch(outs, *a, **kw):
+        caught.append({f: getattr(outs, f) for f in outs._fields})
+        collect(outs, *a, **kw)
+
+    agg._collect_chunk = catch
+    agg.run()
+    check(len(caught) == 1, f"{len(caught)} chunks collected")
+    return caught[0], agg.engine.params.s, agg
+
+
+def forensics_checks(agg, what: str) -> dict:
+    """``telemetry.forensics``: one forensics/chunk_t<t0>.json a chunk,
+    naming the chunk's solver.worst homes (each home's name and config
+    those of all_homes) with a finite state at the chunk's start."""
+    import math
+
+    fdir = os.path.join(agg.run_dir, "forensics")
+    files = sorted(os.listdir(fdir)) if os.path.isdir(fdir) else []
+    worst = [r for r in events_of(agg.run_dir) if r["event"] == "solver.worst"]
+    check(files == [f"chunk_t{w['t0']:08d}.json" for w in worst],
+          f"{what}: forensics {files} for chunks {[w['t0'] for w in worst]}")
+    for name, w in zip(files, worst):
+        with open(os.path.join(fdir, name)) as f:
+            dump = json.load(f)
+        check([h["home"] for h in dump["homes"]] == [h["home"] for h in w["homes"]],
+              f"{what}: {name} names other homes than solver.worst")
+        for h in dump["homes"]:
+            home = agg.all_homes[h["home"]]
+            st = h["state_at_chunk_start"]
+            check(h["name"] == home["name"] and h["config"] == home and st is not None
+                  and set(st) == {"temp_in", "temp_wh", "e_batt", "counter"}
+                  and all(math.isfinite(v) for v in st.values()),
+                  f"{what}: {name}: home {h['home']}: {h['name']}, state {st}")
+    return dict(files=files, homes=[len(w["homes"]) for w in worst],
+                first=dump["homes"][0] if files else None)
+
+
+def route_iters_noise(kagg, lagg) -> dict:
+    """The kernel route's conv_iters histograms against the lax route's
+    over the same run (route_check, H = 24), held as route_check holds the
+    solved flags: every count moved to an adjacent bin only (a home that
+    stops a check window earlier or later) and on at most 1 % of the
+    home-steps.  Returns the counts that moved and each bucket's mean
+    iterations both ways (a home can stop a window apart inside one bin)."""
+    k = [r for r in events_of(kagg.run_dir) if r["event"] == "solver.convergence"]
+    lx = [r for r in events_of(lagg.run_dir) if r["event"] == "solver.convergence"]
+    out = convergence_match(lx, k, "kernel route vs lax route (conv_iters)")
+    check(out["moved_iters"] <= 0.01 * out["observations"],
+          f"kernel vs lax route: {out['moved_iters']} of {out['observations']} conv_iters "
+          f"counts moved")
+    out["mean_iters"] = {a["bucket"]: [a["mean_iters"], b["mean_iters"]] for a, b in zip(lx, k)}
+    return out
+
+
+def step_profile(engine) -> dict:
+    """One engine step (t = 0, zero prices, after a warm-up step) under
+    ``torch.profiler`` with the observatory fold wrapped in a FOLD range:
+    the step's kernel launches and device ms, the fold's; then the fold
+    alone at the same inputs (its four buckets' calls) launched back to
+    back 20 times between CUDA events: its wall time a step, which the
+    host's launches set."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dragg_tpu_torch import engine as em
+
+    fold = em.per_home_obs
+    calls = []
+
+    def traced(*a, **kw):
+        calls.append((a, kw))
+        with record_function(FOLD):
+            return fold(*a, **kw)
+
+    state = engine.init_state()
+    rps = np.zeros((1, engine.params.horizon), np.float32)
+    em.per_home_obs = traced
+    try:
+        engine.run_chunk(state, 0, rps)
+        torch.cuda.synchronize()
+        calls.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.run_chunk(state, 0, rps)
+            torch.cuda.synchronize()
+    finally:
+        em.per_home_obs = fold
+    events = list(prof.events())
+
+    def kernels(e) -> list:
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    step_kernels = [k for e in events for k in e.kernels]
+    fold_kernels = [k for e in events if e.name == FOLD for k in kernels(e)]
+    out = dict(step_launches=len(step_kernels),
+               step_device_ms=sum(k.duration for k in step_kernels) / 1e3,
+               fold_launches=len(fold_kernels),
+               fold_device_ms=sum(k.duration for k in fold_kernels) / 1e3,
+               fold_calls=len(calls))
+    if calls:
+        for a, kw in calls:
+            fold(*a, **kw)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(20):
+            for a, kw in calls:
+                fold(*a, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        out["fold_wall_ms_cuda_events"] = e0.elapsed_time(e1) / 20
+    return out
+
+
+def telemetry_ab(outputs_dir: str, solver: str, **tpu) -> dict:
+    """10,000 homes × AB_STEPS hourly steps (one chunk) with the telemetry
+    and the observatory on (the defaults) and off: results.json bit-equal, every
+    kernel launched as often, the stream of the run with it on checked,
+    none written with it off; then one step of each engine profiled, so
+    that the launches a step on against off are the fold's own."""
+    on = hourly_drive(os.path.join(outputs_dir, f"ab-{solver}-on"), AB_STEPS, solver=solver,
+                      interval="daily", **tpu)
+    off = hourly_drive(os.path.join(outputs_dir, f"ab-{solver}-off"), AB_STEPS, solver=solver,
+                       telemetry={"enabled": False, "per_home": False}, interval="daily",
+                       **tpu)
+    same_results(on["results"], off["results"], f"{solver}: telemetry on vs off")
+    check(on["launches"] == off["launches"],
+          f"{solver}: kernel launches with telemetry on {on['launches']}, off {off['launches']}")
+    check(not os.path.exists(os.path.join(off["agg"].run_dir, "events.jsonl")),
+          f"{solver}: telemetry off wrote a stream")
+    stream = stream_checks(on["agg"], on["results"], AB_STEPS, f"A/B {solver} (on)")
+    prof_on, prof_off = step_profile(on["agg"].engine), step_profile(off["agg"].engine)
+    check(prof_on["fold_calls"] == len(on["agg"].engine.bucket_info())
+          and prof_off["fold_calls"] == 0 and prof_off["fold_launches"] == 0,
+          f"{solver}: fold calls on {prof_on['fold_calls']}, off {prof_off['fold_calls']}")
+    check(prof_on["fold_launches"] > 0 and prof_on["step_device_ms"] > 0,
+          f"{solver}: the profiler saw no device work: {prof_on}")
+    out = dict(launches=on["launches"], s_per_step_on=on["s_per_step"],
+               s_per_step_off=off["s_per_step"], profile_on=prof_on, profile_off=prof_off,
+               step_launches_difference=prof_on["step_launches"] - prof_off["step_launches"],
+               stream=stream)
+    log(f"telemetry A/B ({solver}, 10,000 homes, {AB_STEPS} steps): results bit-equal; "
+        + json.dumps({k: v for k, v in out.items() if k != "stream"}))
+    return out
+
+
+def profile_leg(outputs_dir: str) -> dict:
+    """``tpu.profile_dir``: 1,000 homes × 2 hourly chunks (IPM, split
+    route); the second chunk's Chrome trace holds chol_kernel,
+    refined_solve_kernel and the bus's span, which the stream records."""
+    trace_dir = os.path.join(outputs_dir, "trace")
+    run = hourly_drive(os.path.join(outputs_dir, "profiled"), 2, n_homes=PROFILE_HOMES,
+                       profile_dir=trace_dir)
+    files = os.listdir(trace_dir)
+    check(files == ["chunk_t00000001.pt.trace.json"], f"profile_dir holds {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in trace if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels) for k in ("chol_kernel", "refined_solve_kernel")}
+    spans = [e for e in trace if e.get("name") == "engine.chunk_device_s"]
+    check(all(found.values()) and spans, f"the chunk trace: kernels {found}, spans {len(spans)}")
+    recs = [r for r in events_of(run["agg"].run_dir) if r["event"] == "span"]
+    check([r["name"] for r in recs] == ["engine.chunk_device_s"], f"span events {recs}")
+    out = dict(bytes=os.path.getsize(path), events=len(trace), kernels=len(kernels),
+               band_kernels=found, launches=run["launches"], span_s=recs[0]["s"])
+    log("profile_dir (1,000 homes, 2 hourly chunks): " + json.dumps(out))
+    return out
+
+
+def telemetry_phase(outputs_dir: str, stats: dict, rstats: dict, fleet: dict, routes: dict,
+                    cpu_conv: dict) -> dict:
+    """Phase 15: the run telemetry and the observatory (see the module
+    docstring); the earlier phases' streams were checked as they ran."""
+    out = dict(main_path={"split": stats["stream"], "fused": stats["stream_fused"],
+                          "reluqp": rstats["stream"]},
+               fleet=fleet["streams"], forensics=routes["telemetry"]["forensics"],
+               route_conv_iters=routes["telemetry"]["conv_iters"], cpu_vs_cuda=cpu_conv)
+    for run in fleet["streams"].values():
+        check({"ev", "heat_pump"} <= set(run["buckets"]),
+              f"the fleet's stream lacks the ev or heat_pump bucket: {list(run['buckets'])}")
+    out["ab_ipm"] = telemetry_ab(outputs_dir, "ipm", band_fused=False)
+    out["ab_reluqp"] = telemetry_ab(outputs_dir, "reluqp", iter_kernel="pallas", precision="f32")
+    out["profile"] = profile_leg(outputs_dir)
+    out["launches"] = {"banded_cholesky_t": out["ab_ipm"]["launches"]["banded_cholesky_t"],
+                       "refined_banded_solve_t":
+                           out["ab_ipm"]["launches"]["refined_banded_solve_t"],
+                       "factor_refined_solve_t":
+                           out["ab_ipm"]["launches"]["factor_refined_solve_t"],
+                       WINDOW: out["ab_reluqp"]["launches"][WINDOW]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1997,13 +2373,23 @@ def main() -> int:
 
     from dragg_tpu_torch.ops.cuda_lib import build_library
 
-    t_start = t0 = time.perf_counter()
-    build_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    # Seconds of each phase, for the next slice's budget (the phases line).
+    phases = {}
+
+    def timed(phase: str, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phases[phase] = round(phases.get(phase, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
+    t_start = time.perf_counter()
+    timed("2_build", build_library)
+    log(f"build: {phases['2_build']:.1f} s")
 
     from dragg_tpu_torch.aggregator import Aggregator
 
     with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
         buckets = {}
         for h in (MAIN_HORIZON, 48):
             agg = Aggregator(community_config(N_HOMES, h, "2015-01-01 01", bucketed="auto"),
@@ -2025,29 +2411,33 @@ def main() -> int:
         log(f"bucket band shapes (horizon, name, m, bw, B): {shapes}")
         grid_shapes = [(GRID, b["name"], b["m_eq"], b["band_bw"], b["n_real"]) for b in grid]
         log(f"grid-block band shapes: {grid_shapes}")
-        kern = kernel_phase(shapes)
-        win = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
-                            for b in buckets[MAIN_HORIZON]])
+        phases["3_kernels"] = round(time.perf_counter() - t0, 1)  # the bucket shapes
+        kern = timed("3_kernels", kernel_phase, shapes)
+        win = timed("3_kernels", window_phase, [(b["name"], b["m_eq"], b["n_var"], b["n_real"])
+                                                for b in buckets[MAIN_HORIZON]])
         # H = 48: every bucket runs, the two largest on a 2-block cluster.
-        win48 = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
-                              for b in buckets[48]], sizes=(1001,))
-        kern_grid = kernel_phase(grid_shapes)
-        win_grid = window_phase([(b["name"], b["m_eq"], b["n_var"], b["n_real"])
-                                 for b in grid], sizes=(1001,))
-        highs_check("ipm")
-        highs_check("reluqp")
-        cpu_vs_cuda_check()
-        reluqp_cpu_vs_cuda_check()
-        stats = main_path(d)
-        rstats = reluqp_main_path(d)
-        routes = route_check()
-        routes48 = h48_route_check()
-        resume = resume_pipeline_phase(d)
-        resolve = resolve_phase(d)
-        xla = xla_route_check()
-        rl = rl_phase(d, stats)
-        fleet = fleet_phase(d)
-        fleet_rl = fleet_rl_phase(d, rl)
+        win48 = timed("3_kernels", window_phase,
+                      [(b["name"], b["m_eq"], b["n_var"], b["n_real"]) for b in buckets[48]],
+                      sizes=(1001,))
+        kern_grid = timed("3_kernels", kernel_phase, grid_shapes)
+        win_grid = timed("3_kernels", window_phase,
+                         [(b["name"], b["m_eq"], b["n_var"], b["n_real"]) for b in grid],
+                         sizes=(1001,))
+        timed("4_small_inputs", highs_check, "ipm")
+        timed("4_small_inputs", highs_check, "reluqp")
+        cpu_conv = timed("4_small_inputs", cpu_vs_cuda_check)
+        timed("4_small_inputs", reluqp_cpu_vs_cuda_check)
+        stats = timed("5_main_path_ipm", main_path, d)
+        rstats = timed("6_main_path_reluqp", reluqp_main_path, d)
+        routes = timed("7_route_check", route_check)
+        routes48 = timed("8_h48", h48_route_check)
+        resume = timed("9_resume_pipeline", resume_pipeline_phase, d)
+        resolve = timed("10_resolve", resolve_phase, d)
+        xla = timed("11_band_kernel_xla", xla_route_check)
+        rl = timed("12_rl", rl_phase, d, stats)
+        fleet = timed("13_fleet", fleet_phase, d)
+        fleet_rl = timed("14_fleet_rl", fleet_rl_phase, d, rl)
+        tel = timed("15_telemetry", telemetry_phase, d, stats, rstats, fleet, routes, cpu_conv)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -2116,6 +2506,8 @@ def main() -> int:
             launches_rl=launches_rl[name],
             launches_fleet=launches_fleet[name],
             launches_fleet_rl=fleet_rl["launches"][name],
+            # Phase 15's A/B legs with the telemetry on (IPM, split route).
+            launches_telemetry=tel["launches"][name],
             grid_block=dict(grid_block(grid_rows, name),
                             max_abs_err=kern_grid["max_abs_err"][name]),
         ))
@@ -2137,16 +2529,20 @@ def main() -> int:
         shapes=[[r["bucket"], r["m"], r["n"], r["B"]] for r in rows],
         launches_fleet=launches_fleet[WINDOW],
         launches_fleet_rl=fleet_rl["launches"][WINDOW],
+        launches_telemetry=tel["launches"][WINDOW],
         grid_block=dict(grid_block(win_grid["per_shape"]), max_abs_err=win_grid["max_abs_err"]),
     ))
-    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
+    phases["whole_script"] = round(time.perf_counter() - t_start, 1)
+    log(f"whole script: {phases['whole_script']:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kern, "window": win, "window_h48": win48,
                    "main_path": stats, "main_path_reluqp": rstats, "routes": routes,
                    "routes_h48": routes48, "resume_pipeline": resume, "resolve": resolve,
                    "band_kernel_xla": xla, "rl": rl, "kernels_grid": kern_grid,
-                   "window_grid": win_grid, "fleet": fleet, "fleet_rl": fleet_rl}, f, indent=1)
+                   "window_grid": win_grid, "fleet": fleet, "fleet_rl": fleet_rl,
+                   "telemetry": tel, "phases": phases}, f, indent=1)
+    print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

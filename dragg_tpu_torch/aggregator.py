@@ -21,12 +21,23 @@ its own seed and seeing its own weather offset, in one engine; the home
 list and results.json are community-major.  A ``[scenarios]`` pack
 expands into the home mix and the event timeline before anything reads
 them; a fleet's RL cases train one policy (or one per community) on all
-C communities (:mod:`dragg_tpu_torch.rl.fleet`).  Telemetry and the
-sharded mesh raise NotImplementedError naming their config key.
+C communities (:mod:`dragg_tpu_torch.rl.fleet`).  The sharded mesh
+raises NotImplementedError naming its config key.
+
+Telemetry (``[telemetry]``, on by default as in the JAX package): the run
+opens the bus (:mod:`dragg_tpu_torch.telemetry`) at
+``<run_dir>/events.jsonl`` and writes ``run.start``, then for each chunk
+``chunk.done`` and the observatory's ``solver.convergence`` (one a
+bucket), ``solver.worst`` and ``solver.diverged`` from the fold the
+engine's step carried home, then ``run.end`` and ``metrics.json``.
+``telemetry.forensics`` dumps the chunk's worst homes to
+``<run_dir>/forensics/``; ``tpu.profile_dir`` traces the second chunk
+with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -37,7 +48,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dragg_tpu_torch import telemetry
 from dragg_tpu_torch.checkpoint import (
+    host_snapshot,
     latest_checkpoint_dir,
     load_progress,
     load_pytree,
@@ -47,7 +60,7 @@ from dragg_tpu_torch.checkpoint import (
     tree_unflatten,
 )
 from dragg_tpu_torch.collector import SeriesCollector
-from dragg_tpu_torch.config import configured_solver, load_config
+from dragg_tpu_torch.config import configured_solver, default_config, load_config
 from dragg_tpu_torch.data import (
     EnvironmentData,
     load_environment,
@@ -56,7 +69,7 @@ from dragg_tpu_torch.data import (
     waterdraw_path,
 )
 from dragg_tpu_torch.device import resolve_device
-from dragg_tpu_torch.engine import Engine, StepOutputs, make_engine
+from dragg_tpu_torch.engine import OBS_FIELDS, Engine, StepOutputs, make_engine
 from dragg_tpu_torch.homes import (
     build_fleet_batch,
     check_home_configs,
@@ -88,12 +101,17 @@ _BATT_KEYS = {"e_batt_opt": "e_batt", "p_batt_ch": "p_batt_ch", "p_batt_disch": 
 _EV_KEYS = {"p_ev_ch_opt": "p_ev_ch", "e_ev_opt": "e_ev"}
 _SERIES_KEYS = {**_BASE_KEYS, **_PV_KEYS, **_BATT_KEYS, **_EV_KEYS}
 
-# Config switches this package does not run yet: (section, key, value
-# that is in the slice).
-_OUT_OF_SLICE = (
-    ("telemetry", "enabled", False),
-    ("tpu", "profile_dir", ""),
-)
+# The observatory's per-bucket conv-iters metrics, one registered literal
+# a home type; a bucket that is absent never observes.
+_CONV_ITERS_METRICS = {
+    "pv_battery": "solver.conv_iters_pv_battery",
+    "pv_only": "solver.conv_iters_pv_only",
+    "battery_only": "solver.conv_iters_battery_only",
+    "base": "solver.conv_iters_base",
+    "ev": "solver.conv_iters_ev",
+    "heat_pump": "solver.conv_iters_heat_pump",
+    "superset": "solver.conv_iters_superset",
+}
 
 
 class Aggregator:
@@ -126,9 +144,6 @@ class Aggregator:
 
         self.config = config if isinstance(config, dict) else load_config(config)
         self.config = apply_scenarios(self.config, self.data_dir)
-        for section, key, ok in _OUT_OF_SLICE:
-            if self.config.get(section, {}).get(key, ok) != ok:
-                raise NotImplementedError(f"{section}.{key} is not ported yet")
         if self.config.get("tpu", {}).get("sharded", "auto") is True:
             raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
         # [fleet]: C communities in one engine; community.total_number_homes
@@ -186,6 +201,16 @@ class Aggregator:
         # checkpoint, so stopping is a kill right after one: the hook the
         # resume tests and staged runs use.
         self.stop_after_chunks: int | None = None
+        # Whether THIS aggregator opened the telemetry bus (run() →
+        # _telemetry_open): the emits gate on it, not on telemetry.active(),
+        # which a $DRAGG_TELEMETRY_DIR export would turn on regardless of
+        # telemetry.enabled.
+        self._telemetry_on = False
+        self._forensics_on = False  # telemetry.forensics, set with the bus
+        # The state at the start of the chunk being collected (host copy or
+        # tensors): what a forensic dump slices.
+        self._chunk_state0 = None
+        self._next_state0 = None
 
     def _check_rl_fleet(self) -> None:
         """A fleet's RL cases: the ``[rl.fleet]`` table's ValueErrors, and
@@ -310,15 +335,23 @@ class Aggregator:
         for key, arr in init.items():
             self.collector.add_chunk(key, arr)
 
-    def _collect_chunk(self, outs: StepOutputs, track_setpoints: bool = True) -> None:
+    def _collect_chunk(self, outs: StepOutputs, track_setpoints: bool = True,
+                       device_s: float | None = None, device_observed: bool = False) -> None:
         """Append a chunk of stacked step outputs, host arrays, to the
-        series store, then track the setpoint per step.
-        ``track_setpoints=False`` skips the host's ``gen_setpoint``: the RL
-        aggregator tracks the setpoint on the device and writes ``all_sps``
-        itself."""
-        # Per-home columns in all_homes order (a fleet's batch is type-major).
+        series store, emit the chunk's telemetry, then track the setpoint
+        per step.  ``track_setpoints=False`` skips the host's
+        ``gen_setpoint``: the RL aggregator tracks the setpoint on the
+        device and writes ``all_sps`` itself.
+
+        ``device_s`` (the caller's seconds driving the chunk) feeds the
+        step-latency telemetry (``device_observed``: a span already
+        observed it).  The solver telemetry and the observatory ride the
+        same host copy as the series: StepOutputs carries them."""
+        # Per-home columns in all_homes order (a fleet's batch is type-major);
+        # the observatory's leaves are per bucket, not per home.
         cols = self.engine.real_home_cols
-        host = {f: a[:, cols] if a.ndim == 2 else a for f, a in outs._asdict().items()}
+        host = {f: a[:, cols] if a.ndim == 2 and f not in OBS_FIELDS else a
+                for f, a in outs._asdict().items()}
         n_steps = host["p_grid"].shape[0]
         for out_key, field in _SERIES_KEYS.items():
             self.collector.add_chunk(out_key, host[field])
@@ -327,6 +360,32 @@ class Aggregator:
         self._solve_iters.extend(int(v) for v in host["admm_iters"])
         self.bank_fallback_total += float(np.sum(host["bank_fallback_count"]))
         n_repair_failed = float(np.sum(host["repair_failed"]))
+        if self._telemetry_on:
+            # One typed record per chunk on the run's stream.
+            rate = float(host["correct_solve"].mean())
+            mean_iters = float(host["admm_iters"].mean())
+            rpm = float(host["r_prim_max"].max())
+            rdm = float(host["r_dual_max"].max())
+            fields = dict(t0=self.timestep, t1=self.timestep + n_steps,
+                          n_steps=n_steps, solve_rate=round(rate, 4),
+                          solver_iters=round(mean_iters, 1),
+                          r_prim_max=rpm, r_dual_max=rdm,
+                          repair_failed=int(n_repair_failed))
+            if device_s is not None:
+                fields["device_s"] = round(device_s, 3)
+                fields["steps_per_s"] = round(n_steps / max(device_s, 1e-9), 3)
+                if not device_observed:
+                    telemetry.observe("engine.chunk_device_s", device_s)
+                telemetry.observe("engine.chunk_steps_per_s", fields["steps_per_s"])
+            telemetry.emit("chunk.done", **fields)
+            telemetry.observe("engine.solve_iters", mean_iters)
+            telemetry.set_gauge("engine.solve_rate", rate)
+            telemetry.set_gauge("engine.r_prim_max", rpm)
+            telemetry.set_gauge("engine.r_dual_max", rdm)
+            telemetry.set_gauge("sim.timestep", self.timestep + n_steps)
+            if n_repair_failed:
+                telemetry.inc("engine.repair_failed", n_repair_failed)
+            self._emit_observatory(host, n_steps)
         if n_repair_failed > 0:
             self.log.logger.progress(
                 f"chunk t={self.timestep}..{self.timestep + n_steps}: "
@@ -345,6 +404,125 @@ class Aggregator:
                 self.agg_setpoint = self.gen_setpoint()
                 if self.timestep < self.num_timesteps:
                     self.all_sps[self.timestep] = self.agg_setpoint
+
+    def _emit_observatory(self, host: dict, n_steps: int) -> None:
+        """The observatory's emits for one chunk: the per-bucket histograms
+        and worst-k captures the engine folded on the device
+        (``engine.per_home_obs``) → ``solver.convergence`` (one a bucket),
+        ``solver.diverged`` (when any home diverged), ``solver.worst`` (the
+        chunk's k worst homes, each at its worst step) and the per-bucket
+        conv-iters metrics; then the forensic dump when
+        ``telemetry.forensics`` is on."""
+        if not self.engine.obs_enabled:
+            return
+        ch = np.asarray(host["conv_hist"])            # (T, nb, RBINS)
+        if ch.size == 0:
+            return
+        t0, t1 = self.timestep, self.timestep + n_steps
+        binfo = self.engine.bucket_info()
+        isum = np.asarray(host["iters_sum"])          # (T, nb)
+        dc = np.asarray(host["diverged_count"])       # (T, nb)
+        ih = np.asarray(host["iters_hist"])
+        for bi, b in enumerate(binfo):
+            rhist = ch[:, bi, :].sum(axis=0)
+            n_obs = float(rhist.sum())
+            mean_iters = float(isum[:, bi].sum()) / max(n_obs, 1.0)
+            telemetry.emit(
+                "solver.convergence", t0=t0, t1=t1, bucket=b["name"],
+                n_homes=b["n_real"],
+                rprim_hist=[int(v) for v in rhist],
+                iters_hist=[int(v) for v in ih[:, bi, :].sum(axis=0)],
+                mean_iters=round(mean_iters, 2),
+                diverged=int(dc[:, bi].sum()))
+            telemetry.observe(_CONV_ITERS_METRICS[b["name"]], mean_iters)
+        total_div = float(dc.sum())
+        if total_div:
+            telemetry.inc("solver.diverged_homes", total_div)
+            telemetry.emit(
+                "solver.diverged", t0=t0, t1=t1, total=int(total_div),
+                by_bucket={b["name"]: int(dc[:, bi].sum())
+                           for bi, b in enumerate(binfo)
+                           if dc[:, bi].sum() > 0})
+        # The chunk's worst k across its (step, bucket) captures (idx −1 =
+        # an empty slot of a bucket with fewer than k homes).
+        wi = np.asarray(host["worst_idx"])            # (T, nb·k)
+        wrp = np.asarray(host["worst_rp"])
+        wrd = np.asarray(host["worst_rd"])
+        wit = np.asarray(host["worst_iters"])
+        wb = np.asarray(host["worst_bucket"])
+        ti, si = np.nonzero(wi >= 0)
+        if ti.size == 0:
+            return
+        k = int(self.engine.params.obs_worst_k)
+        # The fold reports non-finite residuals as the float32-max sentinel;
+        # the where guards a NaN, which argsort would put last whatever its
+        # sign, dropping the very homes the capture names.
+        rank = wrp[ti, si]
+        rank = np.where(np.isfinite(rank), rank, np.float32(3.4e38))
+        order = np.argsort(-rank, kind="stable")
+        # One entry a home, at its worst step: a home diverging all chunk
+        # would otherwise fill every slot.
+        entries, seen = [], set()
+        for t, s in zip(ti[order], si[order]):
+            home = int(wi[t, s])
+            if home in seen:
+                continue
+            seen.add(home)
+            entries.append(
+                dict(home=home,
+                     bucket=binfo[int(wb[t, s])]["name"],
+                     t=t0 + int(t),
+                     r_prim=float(wrp[t, s]), r_dual=float(wrd[t, s]),
+                     iters=int(wit[t, s])))
+            if len(entries) >= k:
+                break
+        telemetry.emit("solver.worst", t0=t0, t1=t1, homes=entries)
+        telemetry.set_gauge("solver.worst_rprim", entries[0]["r_prim"])
+        if self._forensics_on:
+            self._write_forensics(t0, t1, entries)
+
+    def _write_forensics(self, t0: int, t1: int, entries: list[dict]) -> None:
+        """``telemetry.forensics``: one ``forensics/chunk_t<t0>.json`` a
+        chunk with what an offline re-solve of the worst homes needs
+        without re-running the community: each home's config, its scalar
+        state at the chunk's start (``engine.state_slice``), its worst
+        step and the chunk's reward prices."""
+        if self.run_dir is None:
+            return
+        state0 = self._chunk_state0
+        p = self.engine.params
+        dump = {
+            "t0": t0, "t1": t1, "case": self.case,
+            "start_index": int(p.start_index),
+            "solver": p.solver,
+            "horizon": int(p.horizon),
+            "integer_first_action": bool(p.integer_first_action),
+            "integer_repair": p.integer_repair,
+            "buckets": self.engine.bucket_info(),
+            "reward_prices": [float(v) for v in self.all_rps[t0:t1]],
+            "note": ("state_at_chunk_start is the carried state at t0; "
+                     "replaying t0..t for one home reproduces the exact "
+                     "(t, state, QP coefficients) of the worst step"),
+            "homes": [
+                {**e,
+                 "name": self.all_homes[e["home"]]["name"],
+                 "type": self.all_homes[e["home"]]["type"],
+                 "state_at_chunk_start": (
+                     self.engine.state_slice(state0, e["home"])
+                     if state0 is not None else None),
+                 "config": self.all_homes[e["home"]]}
+                for e in entries
+            ],
+        }
+        fdir = os.path.join(self.run_dir, "forensics")
+        try:
+            os.makedirs(fdir, exist_ok=True)
+            path = os.path.join(fdir, f"chunk_t{t0:08d}.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(dump, f, indent=1, default=str)
+            os.replace(path + ".tmp", path)
+        except OSError:
+            pass  # forensics never kill the run
 
     def _log_home_failures(self, correct_solve: np.ndarray) -> None:
         """One ``home_logs/<name>.log`` per home that fell back, appended
@@ -565,6 +743,11 @@ class Aggregator:
         state, t = self.try_resume(self.engine.init_state())
         H = self.engine.params.horizon
         pipelined = bool(self.config.get("fleet", {}).get("pipeline", True))
+        # The state at the start of the next chunk to be collected, for the
+        # forensic dump: a host copy of the first; after that, the state
+        # the previous chunk staged (its slot is not re-staged until the
+        # chunk after this one).
+        self._next_state0 = host_snapshot(state) if self._forensics_on else None
         slots = (_HostSlot(self.device), _HostSlot(self.device))
         chunks = 0
         busy = None        # the worker's future for the chunk in host work
@@ -578,9 +761,10 @@ class Aggregator:
             while more():
                 n_steps = min(self.checkpoint_interval, self.num_timesteps - t)
                 d0 = time.perf_counter()
-                state, outs = self.engine.run_chunk(
-                    state, t, np.zeros((n_steps, H), dtype=np.float32))
-                device_s = time.perf_counter() - d0
+                with self._maybe_profile(chunks, t) as sp:
+                    state, outs = self.engine.run_chunk(
+                        state, t, np.zeros((n_steps, H), dtype=np.float32))
+                device_s = time.perf_counter() - d0 if sp is None else sp.s
                 if driving is not None:
                     driving.set()
                 if busy is not None:
@@ -593,6 +777,7 @@ class Aggregator:
                 t += n_steps
                 chunks += 1
                 pend = {"t_end": t, "slot": slot, "device_s": device_s,
+                        "device_observed": sp is not None,
                         "snapshot_s": time.perf_counter() - s0}
                 if pipelined:
                     driving = threading.Event() if more() else None
@@ -615,14 +800,60 @@ class Aggregator:
         outs, after_state = pend["slot"].wait()
         self._phase_times["device_chunks"] += pend["device_s"]
         self._phase_times["state_snapshot"] += pend["snapshot_s"]
-        self._collect_chunk(outs)
-        self._phase_times["collect"] += time.perf_counter() - host_t0
+        self._chunk_state0 = self._next_state0
+        self._collect_chunk(outs, device_s=pend["device_s"],
+                            device_observed=pend["device_observed"])
+        collect_s = time.perf_counter() - host_t0
+        self._phase_times["collect"] += collect_s
+        if self._telemetry_on:
+            telemetry.observe("engine.collect_s", collect_s)
+        if self._forensics_on:
+            self._next_state0 = after_state
         if pend["t_end"] < self.num_timesteps:
             self.log.logger.info("Creating a checkpoint file.")
             self.write_outputs()
             self.save_checkpoint(after_state)
         if driving is not None and not driving.is_set():
-            self._phase_times["overlap_hidden_s"] += time.perf_counter() - host_t0
+            host_s = time.perf_counter() - host_t0
+            self._phase_times["overlap_hidden_s"] += host_s
+            if self._telemetry_on:
+                telemetry.observe("engine.overlap_hidden_s", host_s)
+
+    def _profile_dir(self) -> str:
+        """Where the chunk trace goes: ``$JAX_PROFILE_DIR``, else
+        ``tpu.profile_dir`` ("" = no trace).  The environment variable is
+        the JAX package's, read here too so that one script traces a run
+        of either package."""
+        return os.environ.get("JAX_PROFILE_DIR",
+                              self.config.get("tpu", {}).get("profile_dir", ""))
+
+    @contextlib.contextmanager
+    def _maybe_profile(self, chunk_idx: int, t0: int):
+        """A ``torch.profiler`` trace (host and, on a card, the device's
+        kernels) around the second chunk (the first builds the kernels and
+        warms the caches), exported as a Chrome trace to
+        ``<profile_dir>/chunk_t<t0>.pt.trace.json``; the chunk runs inside
+        the bus span ``engine.chunk_device_s`` (yielded: its ``s`` is the
+        chunk's seconds), which the trace shows as a range.  The traced
+        chunk waits for the device before the trace closes, so it is
+        serialized against the next.  Yields None for every other chunk."""
+        profile_dir = self._profile_dir()
+        if not profile_dir or chunk_idx != 1:
+            yield None
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.log.logger.info(f"Writing profiler trace to {profile_dir}")
+        with profile(activities=activities) as prof:
+            with telemetry.span("engine.chunk_device_s") as sp:
+                yield sp
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, f"chunk_t{t0:08d}.pt.trace.json"))
 
     def check_baseline_vals(self) -> list[str]:
         """Result-shape check over the selected homes
@@ -754,11 +985,46 @@ class Aggregator:
             "weekly": self.dt * 24 * 7,
         }.get(interval, 500)
 
+    def _telemetry_open(self) -> bool:
+        """Open the run's telemetry bus (``events.jsonl`` + in-memory
+        metrics) when ``telemetry.enabled``; this package runs one process,
+        which is the JAX package's process 0.  The destination resolves
+        ``telemetry.dir`` → ``$DRAGG_TELEMETRY_DIR`` → the run directory.
+        A resumed run appends to the stream it left."""
+        tcfg = {**default_config()["telemetry"], **self.config.get("telemetry", {})}
+        if not tcfg["enabled"]:
+            return False
+        self._forensics_on = bool(tcfg.get("forensics", False))
+        tdir = tcfg["dir"] or os.environ.get(telemetry.ENV_DIR) or self.run_dir
+        telemetry.init_run(tdir)
+        cfg = self.config
+        telemetry.emit(
+            "run.start",
+            case=self.case,
+            homes=cfg["community"]["total_number_homes"],
+            horizon=cfg["home"]["hems"]["prediction_horizon"],
+            solver=configured_solver(cfg),
+            run_dir=self.run_dir,
+        )
+        return True
+
+    def _telemetry_close(self, t0: float) -> None:
+        telemetry.emit(
+            "run.end",
+            timestep=self.timestep,
+            num_timesteps=self.num_timesteps,
+            elapsed_s=round(time.time() - t0, 3),
+            completed=self.timestep >= self.num_timesteps,
+        )
+        telemetry.write_snapshot()
+        telemetry.close_run()
+
     def run(self) -> None:
         """Entry point (dragg/aggregator.py:941-970): the enabled cases in
         the reference's order, the baseline (``simulation.run_rbo_mpc``),
         then the RL aggregator (``run_rl_agg``) and the RL agent against
-        the simplified community (``run_rl_simplified``)."""
+        the simplified community (``run_rl_simplified``), inside the run's
+        telemetry bus."""
         self.log.logger.info("Made it to Aggregator Run")
         # Again here: callers switch the RL cases on in ``config`` after
         # construction (the CLI's and the tests' pattern).
@@ -766,6 +1032,17 @@ class Aggregator:
         self.checkpoint_interval = self._checkpoint_steps()
         self.version = self.config["simulation"].get("named_version", "test")
         self.set_run_dir()
+        self._telemetry_on = self._telemetry_open()
+        t_run0 = time.time()
+        try:
+            self._run_cases()
+        finally:
+            if self._telemetry_on:
+                self._telemetry_close(t_run0)
+                self._telemetry_on = False
+
+    def _run_cases(self) -> None:
+        """The enabled simulation cases, in the reference's order."""
         sim = self.config["simulation"]
         if sim.get("run_rbo_mpc", True):
             self.case = "baseline"

@@ -306,16 +306,23 @@ _DEFAULT: dict[str, Any] = {
         "transport_retry_s": 10.0,
         "listen": "127.0.0.1:0",
     },
-    # Run telemetry and the per-home observatory: not ported.  Both default
-    # off here, and turning either on raises NotImplementedError.
+    # Run telemetry (dragg_tpu_torch/telemetry), the JAX package's defaults.
     "telemetry": {
-        "enabled": False,
-        "dir": "",
-        "per_home": False,
-        "worst_k": 8,
-        "forensics": False,
-        "trace": False,
-        "flush_interval_s": 0.0,
+        "enabled": True,   # <run_dir>/events.jsonl + a final metrics.json;
+                           # false: no bus, no files
+        "dir": "",         # destination ("" = $DRAGG_TELEMETRY_DIR, else
+                           # the run directory)
+        "per_home": True,  # the observatory: per-bucket residual and
+                           # iteration histograms and the worst-k homes,
+                           # folded on the device each step; false leaves
+                           # the fold out of the step
+        "worst_k": 8,      # worst homes captured per bucket per step
+        "forensics": False,  # per-chunk dumps of the worst homes (config
+                             # and chunk-start state) to <run_dir>/forensics/
+        "trace": False,    # causal trace ids (read by the serving and
+                           # shard layers, not ported)
+        "flush_interval_s": 0.0,  # > 0: periodic metrics.json flush
+                                  # (the same layers)
     },
     # Solver and engine settings (no reference analog).
     "tpu": {
@@ -388,7 +395,8 @@ _DEFAULT: dict[str, Any] = {
         "fix_tou_peak": False,  # reference bug parity: peak price is overwritten by shoulder (dragg/aggregator.py:214-215)
         "mesh_axis": "homes",
         "sharded": "auto",        # the sharded mesh: not ported; true raises
-        "profile_dir": "",        # device trace of one chunk: not ported
+        "profile_dir": "",        # torch.profiler trace of the second chunk
+                                  # ($JAX_PROFILE_DIR overrides it)
         "ddpg_actor_lr": 1e-3,
         "ddpg_critic_lr": 1e-3,
         "ddpg_tau": 0.01,

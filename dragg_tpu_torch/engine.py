@@ -50,6 +50,7 @@ from dragg_tpu_torch.device import resolve_device
 from dragg_tpu_torch.homes import TYPE_CODES, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
 from dragg_tpu_torch.models.fallback import fallback_control
+from dragg_tpu_torch.ops.dual import primal
 from dragg_tpu_torch.ops.ipm import band_plan, ipm_solve_qp
 from dragg_tpu_torch.ops.precision import validate_precision
 from dragg_tpu_torch.ops.reluqp import reluqp_solve_qp_cached
@@ -72,6 +73,33 @@ WINTER_MAX_OAT = 30.0  # season switch threshold, degC (dragg/mpc_calc.py:303)
 # ``tpu.bucketed = "auto"`` buckets by home type when both hold.
 BUCKETED_MIN_HOMES = 32
 BUCKETED_MIN_FRAC = 0.25
+
+# --- The observatory (``telemetry.per_home``): per-bucket histograms of
+# the solver's per-home final primal residual and convergence iterations,
+# and the bucket's worst-k homes, folded on the device each step
+# (:func:`per_home_obs`) and carried home in the StepOutputs the
+# aggregator already copies.  The bins are the JAX package's fixed
+# literals, so histograms of either package add up.
+#
+# Residual bins: index 0 = r_prim < 1e-7, then half-decade log10 bins over
+# [1e-7, 10) (values >= 10 clip into the last log bin), and a final bin for
+# certified-diverged / non-finite homes.
+OBS_RES_LOG_LO = -7.0
+OBS_RES_LOG_STEP = 0.5
+OBS_RES_BINS = 18  # 1 underflow + 16 half-decade bins + 1 diverged
+# Iteration bins: bin i holds conv_iters in (edge[i-1], edge[i]]; the last
+# holds > 512.
+OBS_ITER_EDGES = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+                  384, 512)
+OBS_ITER_BINS = len(OBS_ITER_EDGES) + 1
+
+# StepOutputs fields carrying the observatory fold: shaped per bucket
+# ((n_buckets, bins) / (n_buckets * k,) a step), not per home, so the
+# aggregator's home-column slicing skips them.
+OBS_FIELDS = frozenset({
+    "conv_hist", "iters_hist", "iters_sum", "diverged_count",
+    "worst_idx", "worst_rp", "worst_rd", "worst_iters", "worst_bucket",
+})
 
 
 def resolve_bucket_plan(bucketed: str, type_code) -> list[tuple[str, int, int]] | None:
@@ -106,6 +134,9 @@ class _TypeBucket(NamedTuple):
     single bucket ``"superset"``."""
 
     name: str
+    ordinal: int             # position in the engine's buckets (= the
+                             # bucket_info() row the observatory's
+                             # worst_bucket codes index)
     lay: QPLayout
     comm_start: int          # first home in community order
     n: int                   # homes in the bucket
@@ -116,7 +147,8 @@ class _TypeBucket(NamedTuple):
                              # index within its own community
     home_key: torch.Tensor   # (n, 2) per-home base PRNG key (its
                              # community's seed)
-    home_idx: np.ndarray     # (n,) community-major fleet index (host)
+    home_idx: torch.Tensor   # (n,) int32 community-major fleet index (the
+                             # observatory's worst-k names)
     env_off: torch.Tensor    # (n,) offset into the environment series
     comm_idx: torch.Tensor   # (n,) community: the event-timeline row
 
@@ -172,6 +204,20 @@ class StepOutputs(NamedTuple):
     r_dual_max: torch.Tensor       # () max final dual residual
     bank_fallback_count: torch.Tensor  # () homes that needed ReLU-QP's exact-
                                        # refactorization tail (0 for the IPM)
+    # --- The observatory fold (see the OBS_* constants): per-bucket
+    # shapes, concatenated over the buckets; zero-width leaves when
+    # ``telemetry.per_home = false``.
+    conv_hist: torch.Tensor        # (n_buckets, OBS_RES_BINS) r_prim counts
+    iters_hist: torch.Tensor       # (n_buckets, OBS_ITER_BINS) conv_iters counts
+    iters_sum: torch.Tensor        # (n_buckets,) masked sum of conv_iters
+    diverged_count: torch.Tensor   # (n_buckets,) certified-diverged homes
+    worst_idx: torch.Tensor        # (n_buckets·k,) int32 community home index
+                                   # of the bucket's worst-k by r_prim (−1 =
+                                   # an empty slot)
+    worst_rp: torch.Tensor         # (n_buckets·k,) their r_prim
+    worst_rd: torch.Tensor         # (n_buckets·k,) their r_dual
+    worst_iters: torch.Tensor      # (n_buckets·k,) their conv_iters
+    worst_bucket: torch.Tensor     # (n_buckets·k,) int32 bucket ordinal
 
 
 class StepAux(NamedTuple):
@@ -225,6 +271,8 @@ class EngineParams(NamedTuple):
     forecast_noise_cap: float  # max forecast-noise std, degC
     bucketed: str       # "auto" | "true" | "false"
     seed: int
+    obs_per_home: bool  # the observatory fold (telemetry.per_home)
+    obs_worst_k: int    # worst homes captured per bucket per step
 
 
 class Engine:
@@ -303,7 +351,7 @@ class Engine:
         if ranges is None:
             ranges = [("superset", 0, batch.n_homes)]
         self._buckets: list[_TypeBucket] = []
-        for tname, a, b in ranges:
+        for ordinal, (tname, a, b) in enumerate(ranges):
             spec = (superset_spec_for(codes) if tname == "superset"
                     else TYPE_SPECS[tname])
             if grid_events:
@@ -312,17 +360,18 @@ class Engine:
             row = lambda k: torch.as_tensor(rows[k][a:b], dtype=torch.int64,  # noqa: E731
                                             device=dev)
             self._buckets.append(_TypeBucket(
-                name=tname, lay=QPLayout(H, spec), comm_start=a, n=b - a,
+                name=tname, ordinal=ordinal, lay=QPLayout(H, spec), comm_start=a, n=b - a,
                 static=build_qp_static(sub, H, params.dt, spec, device=dev),
                 batch=home_batch_from_numpy(sub._asdict(), dev),
                 check_mask=torch.as_tensor(cmask[a:b], dtype=F32, device=dev),
                 noise_idx=row("noise_idx"),
                 home_key=(keys[0].expand(b - a, 2) if fleet is None
                           else keys[row("comm_idx")]),
-                home_idx=rows["home_idx"][a:b],
+                home_idx=row("home_idx").to(torch.int32),
                 env_off=row("env_off"),
                 comm_idx=row("comm_idx"),
             ))
+        self._obs_edges = torch.tensor(OBS_ITER_EDGES, dtype=torch.int32, device=dev)
 
     @property
     def bucketed(self) -> bool:
@@ -343,13 +392,39 @@ class Engine:
         return self._iter_kernel
 
     def bucket_info(self) -> list[dict]:
-        """One dict per bucket: its type, home range, solved shape and the
-        bandwidth of its Schur band factor."""
-        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n, n_slots=c.n,
+        """One dict per bucket, in ordinal order (the observatory's
+        ``worst_bucket`` codes index this list): its type, home and slot
+        range, solved shape and the bandwidth of its Schur band factor.
+        Slots are homes here (no shard padding)."""
+        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n,
+                     start_slot=c.comm_start, n_slots=c.n,
                      m_eq=c.lay.m_eq, n_var=c.lay.n,
                      nnz=c.static.pattern.nnz,
                      band_bw=band_plan(c.static.pattern).bw)
                 for c in self._buckets]
+
+    @property
+    def obs_enabled(self) -> bool:
+        """Whether the step folds the observatory (``telemetry.per_home``),
+        the aggregator's gate for its emits."""
+        return self.params.obs_per_home
+
+    def state_slice(self, state, home_idx: int) -> dict:
+        """One home's scalar carried state as floats (temp_in, temp_wh,
+        e_batt, counter): the forensic dump's chunk-start snapshot.
+        ``state`` is the engine's (tensors) or a host copy of it (numpy);
+        ``home_idx`` is the community-major fleet index (``all_homes``
+        order), mapped to its batch row first."""
+        if not 0 <= home_idx < self.n_homes:
+            return {}
+        row = int(self.real_home_cols[home_idx])
+        states = state if self._bucketed else (state,)
+        for ctx, st in zip(self._buckets, states):
+            if ctx.comm_start <= row < ctx.comm_start + ctx.n:
+                local = row - ctx.comm_start
+                return {f: float(getattr(st, f)[local])
+                        for f in ("temp_in", "temp_wh", "e_batt", "counter")}
+        return {}
 
     @property
     def events(self):
@@ -685,6 +760,21 @@ class Engine:
         x2[:, lay.i_twh1] += dwh1
         return sol._replace(x=torch.where(keep[:, None], x2, x)), repair_failed
 
+    def _per_home_obs(self, ctx: _TypeBucket, sol) -> dict:
+        """The observatory fold for one bucket (:func:`per_home_obs`) from
+        the solver's per-home vectors; zero-width leaves, and no launch,
+        with ``telemetry.per_home = false``."""
+        p = self.params
+        if not p.obs_per_home:
+            z = torch.zeros((0,), dtype=F32, device=self.device)
+            zi = torch.zeros((0,), dtype=torch.int32, device=self.device)
+            return dict(conv_hist=z.reshape(1, 0), iters_hist=z.reshape(1, 0),
+                        iters_sum=z, diverged_count=z, worst_idx=zi,
+                        worst_rp=z, worst_rd=z, worst_iters=z, worst_bucket=zi)
+        return per_home_obs(primal(sol.r_prim), primal(sol.r_dual), sol.conv_iters,
+                            sol.diverged, ctx.check_mask, ctx.home_idx, ctx.ordinal,
+                            min(p.obs_worst_k, ctx.n), self._obs_edges)
+
     def _finish(self, ctx: _TypeBucket, state: CommunityState, t: int, sol,
                 aux: StepAux, warm_sol, repair_failed):
         """Merge/collect phase for one bucket: recover the physical series,
@@ -813,6 +903,7 @@ class Engine:
                 torch.sum(torch.where(sol.bank_fallback, mask, 0.0))
                 if sol.bank_fallback is not None
                 else torch.zeros((), dtype=F32, device=dev)),
+            **self._per_home_obs(ctx, sol),
         )
         return new_state, out
 
@@ -890,6 +981,61 @@ class Engine:
         return state, StepOutputs(*[torch.stack(leaves) for leaves in zip(*outs)])
 
 
+def per_home_obs(rp, rd, conv_iters, diverged, check_mask, home_idx, ordinal: int,
+                 k: int, edges) -> dict:
+    """The observatory fold for one bucket, on the device and without a
+    host sync (counterpart of the JAX engine's ``_per_home_obs``): the
+    per-home final primal residual ``rp``, dual residual ``rd``,
+    convergence iterations and certified-divergence flags of the homes
+    whose ``check_mask`` is set, folded into the fixed-bin residual and
+    iteration histograms (0/1 weights added with ``index_add_``: exact in
+    any order), the masked iteration sum and divergence count, and the
+    bucket's ``k`` worst homes by ``rp``.
+
+    Non-finite residuals rank as, and are reported as, the float32-max
+    sentinel (the ``r_prim_max`` convention); masked homes score −1 and
+    fill a slot only when the bucket has fewer than ``k`` real homes,
+    named −1.  Ties (every diverged home scores the sentinel) go to the
+    lower index first, as ``lax.top_k``'s do: a stable descending sort.
+    ``home_idx`` names each home (int32, its community-major fleet
+    index), ``ordinal`` the bucket, ``edges`` the int32 ``OBS_ITER_EDGES``
+    on the device."""
+    mask = check_mask > 0
+    cit = conv_iters.to(torch.int32)
+    fin = torch.isfinite(rp)
+    w = torch.where(mask, 1.0, 0.0).to(F32)
+    logr = torch.log10(torch.clamp(torch.where(fin, rp, 1.0), 1e-30, 1e30))
+    rbin = torch.clamp(
+        torch.floor((logr - OBS_RES_LOG_LO) / OBS_RES_LOG_STEP).to(torch.int32) + 1,
+        0, OBS_RES_BINS - 2)
+    rbin = torch.where(diverged | ~fin, OBS_RES_BINS - 1, rbin)
+    rhist = torch.zeros((OBS_RES_BINS,), dtype=F32, device=rp.device).index_add_(
+        0, rbin.to(torch.int64), w)
+    ibin = torch.searchsorted(edges, cit, right=False)
+    ihist = torch.zeros((OBS_ITER_BINS,), dtype=F32, device=rp.device).index_add_(
+        0, ibin, w)
+    iters_sum = torch.sum(torch.where(mask, cit.to(F32), 0.0))
+    div_count = torch.sum(torch.where(mask, diverged.to(F32), 0.0))
+    # Python scalars, not device tensors made from them: a host-to-device
+    # copy would wait for the stream.
+    rp_s = torch.where(fin, rp, 3.4e38)
+    rd_s = torch.where(torch.isfinite(rd), rd, 3.4e38)
+    score = torch.where(mask, rp_s, -1.0)
+    top_s, top_ix = torch.sort(score, descending=True, stable=True)
+    top_s, top_ix = top_s[:k], top_ix[:k]
+    return dict(
+        conv_hist=rhist[None, :],
+        iters_hist=ihist[None, :],
+        iters_sum=iters_sum[None],
+        diverged_count=div_count[None],
+        worst_idx=torch.where(top_s >= 0, home_idx[top_ix], -1).to(torch.int32),
+        worst_rp=rp_s[top_ix],
+        worst_rd=rd_s[top_ix],
+        worst_iters=cit[top_ix].to(F32),
+        worst_bucket=torch.full((k,), ordinal, dtype=torch.int32, device=rp.device),
+    )
+
+
 def engine_params(config, start_index: int) -> EngineParams:
     """The static engine configuration from a validated config dict.
     Settings outside this package's slice raise NotImplementedError naming
@@ -922,9 +1068,6 @@ def engine_params(config, start_index: int) -> EngineParams:
         raise NotImplementedError(
             "tpu.band_kernel: cyclic reduction ('cr') is not ported; 'auto' "
             "and 'pallas' run the CUDA band kernels, 'xla' their plain versions")
-    if config.get("telemetry", {}).get("per_home", False):
-        raise NotImplementedError(
-            "telemetry.per_home: the per-home observatory is not ported")
     precision = validate_precision(str(tpu_cfg.get("precision", "f32")))
     iter_kernel = str(tpu_cfg.get("iter_kernel", "auto"))
     if iter_kernel not in ("auto", "pallas", "lax"):
@@ -971,6 +1114,8 @@ def engine_params(config, start_index: int) -> EngineParams:
         forecast_noise_cap=float(tpu_cfg.get("forecast_noise_cap", 3.0)),
         bucketed=bucketed,
         seed=int(config["simulation"]["random_seed"]),
+        obs_per_home=bool(config.get("telemetry", {}).get("per_home", True)),
+        obs_worst_k=max(1, int(config.get("telemetry", {}).get("worst_k", 8))),
     )
 
 

@@ -161,15 +161,18 @@ def run_rl_agg(agg) -> None:
     chunks = 0
     while t < agg.num_timesteps:
         n_steps = min(agg.checkpoint_interval, agg.num_timesteps - t)
+        # The community state at the chunk's start, for a forensic dump.
+        agg._chunk_state0 = host_snapshot(carry[0]) if agg._forensics_on else None
         d0 = time.perf_counter()
         carry, stacked = run_chunk(agg.engine, agent, settings, norm, carry, t, n_steps)
         outs, recs, rps, sps = host_snapshot(stacked)
         agg._phase_times["device_chunks"] += time.perf_counter() - d0
         c0 = time.perf_counter()
-        agg._collect_chunk(outs, track_setpoints=False)
-        agent.record_chunk(recs)
+        # The chunk's prices first: a forensic dump of it records them.
         agg.all_rps[t:t + n_steps] = rps
         agg.all_sps[t:t + n_steps] = sps
+        agg._collect_chunk(outs, track_setpoints=False)
+        agent.record_chunk(recs)
         agg._phase_times["collect"] += time.perf_counter() - c0
         t += n_steps
         chunks += 1

@@ -131,15 +131,13 @@ def test_cpu_run_loads_no_jax(tmp_path):
         " or m == 'dragg_tpu' or m.startswith('dragg_tpu.')]\n"
         "print('LOADED', bad)\n")
     # The shipped example config, cut to 3 homes × 3 hourly chunks, with
-    # the telemetry this package does not have yet turned off and resume on.
+    # resume on; its [telemetry] (enabled, per_home) as shipped.
     toml = open(os.path.join(REPO, "data", "config.example.toml")).read()
     for a, b in (("total_number_homes = 10", "total_number_homes = 3"),
                  ("homes_pv = 4", "homes_pv = 1"),
                  ('end_datetime = "2015-01-04 00"', 'end_datetime = "2015-01-01 03"'),
                  ('checkpoint_interval = "daily"',
-                  'checkpoint_interval = "hourly"\nresume = true'),
-                 ("[telemetry]\nenabled = true", "[telemetry]\nenabled = false"),
-                 ("per_home = true", "per_home = false")):
+                  'checkpoint_interval = "hourly"\nresume = true')):
         assert a in toml, a
         toml = toml.replace(a, b)
     (tmp_path / "cfg.toml").write_text(toml)
@@ -153,6 +151,8 @@ def test_cpu_run_loads_no_jax(tmp_path):
     assert lines[-4] == "RL linear ddpg 3 3"
     assert lines[-5] == "RESUMED 1 True 3"
     assert os.path.exists(os.path.join(lines[-6], "baseline", "results.json"))
+    for name in ("events.jsonl", "metrics.json"):
+        assert os.path.exists(os.path.join(lines[-6], name)), name
     base = str(tmp_path / "out")
     rl_dir = lines[-6].replace(base, base + "-rl", 1)
     for case in ("baseline", "rl_agg", "simplified"):
@@ -178,12 +178,18 @@ def test_default_device_needs_cuda(tmp_path):
     ("simulation", "run_rl_agg", True),
 ])
 def test_out_of_slice_settings_raise(tmp_path, section, key, value):
-    """Settings outside the port raise NotImplementedError naming their key:
-    the device trace and telemetry.  Fleets, a community base with a
-    weather offset, SPP prices and an RL case with a fleet construct as
-    in the JAX package (the last with its ``rl_fleet`` run shape); a pack
-    that is not shipped raises the JAX package's own error."""
+    """Settings that once lay outside the port construct and run as in the
+    JAX package: the chunk trace (``tpu.profile_dir``: each package traces
+    one chunk, the port's results bit-equal to its run without the trace)
+    and telemetry (the same event names in order).  Fleets, a community
+    base with a weather offset, SPP prices and an RL case with a fleet
+    construct as in the JAX package (the last with its ``rl_fleet`` run
+    shape); a pack that is not shipped raises the JAX package's own
+    error."""
     cfg = _day_config()
+    if key in ("profile_dir", "enabled"):
+        cfg["simulation"].update(end_datetime="2015-01-01 02", checkpoint_interval="hourly")
+        value = str(tmp_path / value) if key == "profile_dir" else value
     cfg[section][key] = value
     if key == "community_base":
         # A base shifts the weather window only together with an offset.
@@ -195,8 +201,28 @@ def test_out_of_slice_settings_raise(tmp_path, section, key, value):
         assert got["rl_fleet"] == want["rl_fleet"] is not None
         return
     if key in ("profile_dir", "enabled"):
-        with pytest.raises(NotImplementedError, match=f"{section}.{key}"):
-            Aggregator(config=cfg, outputs_dir=str(tmp_path), device="cpu")
+        ta = Aggregator(config=cfg, outputs_dir=str(tmp_path / "torch"), device="cpu")
+        ta.run()
+        ja = JaxAggregator(config=cfg, outputs_dir=str(tmp_path / "jax"))
+        ja.run()
+        if key == "enabled":
+            names = [[json.loads(line)["event"] for line in open(os.path.join(a.run_dir,
+                                                                              "events.jsonl"))]
+                     for a in (ta, ja)]
+            assert names[0] == names[1] and names[0].count("chunk.done") == 2
+            return
+        traced = [f for _, _, fs in os.walk(value) for f in fs]
+        assert "chunk_t00000001.pt.trace.json" in traced  # the port's: the second chunk
+        assert sum(f.endswith(".xplane.pb") for f in traced) == 1  # the JAX package's
+        assert len(traced) == 3
+        cfg["tpu"]["profile_dir"] = ""
+        plain = Aggregator(config=cfg, outputs_dir=str(tmp_path / "plain"), device="cpu")
+        plain.run()
+        got, want = _results(ta), _results(plain)
+        for res in (got, want):
+            for k in ("solve_time", "phase_times"):
+                res["Summary"].pop(k)
+        assert got == want
         return
     if key == "pack":
         from dragg_tpu.scenarios import ScenarioError as JaxScenarioError

@@ -100,7 +100,7 @@ def test_engine_matches_jax_across_a_bank_refresh(jax_run, iter_kernel):
     et = te.make_engine(batch, env, cfg, start, device="cpu")
     assert et.iter_kernel == iter_kernel
     _, out_t = et.run_chunk(et.init_state(), 0, np.zeros((N_STEPS, 4), np.float32))
-    assert set(te.StepOutputs._fields) == set(je.StepOutputs._fields) - je.OBS_FIELDS
+    assert set(te.StepOutputs._fields) == set(je.StepOutputs._fields)
     _assert_outputs_match_flip_aware(out_j, out_t, s)
     np.testing.assert_array_equal(out_t.bank_fallback_count.numpy(),
                                   np.asarray(out_j.bank_fallback_count))

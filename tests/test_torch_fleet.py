@@ -97,6 +97,8 @@ def test_fleet_engine_matches_jax():
         nxt, oj = ej.run_chunk(state, t, rps[t:t + 1])
         _, ot = et.run_chunk(engine_state_from_numpy(state, "cpu"), t, rps[t:t + 1])
         for f in te.StepOutputs._fields:
+            if f in te.OBS_FIELDS:
+                continue  # the observatory's leaves: tests/test_torch_observatory*.py
             a, b = np.asarray(getattr(oj, f)), getattr(ot, f).numpy()
             if f in ("correct_solve", "admm_iters", "waterdraws", "hvac_cool_on"):
                 np.testing.assert_array_equal(b, a, err_msg=f"t={t} {f}")
@@ -136,8 +138,12 @@ def test_fleet_matches_standalone_communities(bucketed):
         cfg_c["fleet"].update(communities=1, community_base=c)
         eng_c, solo = _port_run(cfg_c, env, rps=rps[:, c])
         assert eng_c.n_communities == 1 and (eng_c.fleet is None) == (c == 0)
-        fl = {f: a[:, cols[c * B:(c + 1) * B]] if a.ndim == 2 else a for f, a in out.items()}
-        so = {f: a[:, eng_c.real_home_cols] if a.ndim == 2 else a for f, a in solo.items()}
+        # Per-home series and aggregates; the observatory's per-bucket
+        # leaves are held in tests/test_torch_observatory*.py.
+        fl = {f: a[:, cols[c * B:(c + 1) * B]] if a.ndim == 2 else a for f, a in out.items()
+              if f not in te.OBS_FIELDS}
+        so = {f: a[:, eng_c.real_home_cols] if a.ndim == 2 else a for f, a in solo.items()
+              if f not in te.OBS_FIELDS}
         if bucketed == "true":
             _assert_community_match(fl, so, eng.params.s)
         else:
