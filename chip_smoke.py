@@ -146,6 +146,24 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    ``tpu.profile_dir`` on 1,000 homes × 2 hourly chunks (IPM): the
    second chunk's Chrome trace holds chol_kernel, refined_solve_kernel
    and the bus's span;
+16. the ADMM (``home.hems.solver = "admm"``) and cyclic reduction: the
+   refined band solve at refine 0, 1 and 2 (the ADMM's in-loop default,
+   the IPM's, the ADMM's polish) bit-equal to its plain version at the
+   four H = 24 bucket shapes and the six grid-block shapes, one call's
+   ms and device ms at each refine; the ADMM within 1 % of HiGHS on the
+   16-home, 24 h QP; 8 homes × 4 steps at H = 24 on the card against the
+   CPU, each step from the CPU run's state, within the CPU tests'
+   tolerances; the main path: ``Aggregator(config, device="cuda").run()``
+   on the 10,000-home community, 24 steps, backend "auto" (the dense
+   inverse at every bucket, no band or window kernel), solve rate ≥ 0.99,
+   s a step, iterations, factorizations a step, one t = 0 step's launches
+   under torch.profiler; ``admm_solve_backend = "band"``, 10,000 homes ×
+   4 steps with the band kernels and with their plain versions on the
+   card, the kernels launched and the runs bit-equal; 1,000 homes × 2
+   steps of a bf16 Sinv (one refinement pass), the bf16x3 apply and
+   Anderson depth 5 beside the float32 run, solve rates printed; ``band_kernel = "cr"`` on the interior point, 1,000
+   homes × 4 steps against the split route within the CPU-vs-card
+   tolerance;
 
 then prints the phases line (each phase's seconds), the kernels JSON
 line, the card line and, last, the result line.  Per-shape details go to
@@ -382,13 +400,14 @@ def window_phase(shapes, sizes=(N_HOMES, 1001)) -> dict:
 def highs_check(solver: str) -> None:
     """Solutions on the card within 1 % of HiGHS, home by home, on the
     t = 0 QP of a 16-home mixed community at a 24 h horizon: the interior
-    point, or ReLU-QP through the fused window kernel (tests/test_reluqp.py
-    _parity_check)."""
+    point, ReLU-QP through the fused window kernel (tests/test_reluqp.py
+    _parity_check), or the ADMM on its dense inverse."""
     import numpy as np
     import torch
     from scipy.optimize import linprog
 
     from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.ops.admm import admm_solve_qp
     from dragg_tpu_torch.ops.ipm import ipm_solve_qp
     from dragg_tpu_torch.ops.reluqp import reluqp_solve_qp
 
@@ -405,6 +424,10 @@ def highs_check(solver: str) -> None:
     if solver == "ipm":
         sol = ipm_solve_qp(*qp_args, iters=eng.params.ipm_iters, eps_abs=2e-4,
                            eps_rel=2e-4)
+    elif solver == "admm":
+        # The dense-inverse backend ("auto" at 16 homes), the engine's
+        # iteration cap.
+        sol = admm_solve_qp(*qp_args, iters=1500, eps_abs=1e-4, eps_rel=1e-4)
     else:
         sol = reluqp_solve_qp(*qp_args, iters=3000, eps_abs=1e-4, eps_rel=1e-4,
                               iter_kernel="pallas")
@@ -2349,6 +2372,302 @@ def telemetry_phase(outputs_dir: str, stats: dict, rstats: dict, fleet: dict, ro
     return out
 
 
+# ------------------------------------------------------------- the ADMM
+ADMM_REFINES = (0, 1, 2)   # the ADMM's in-loop default, the IPM's, the polish's
+ADMM_CPU_STEPS = 4         # 8 homes, H = 24, each step from the CPU run's state
+ADMM_BAND_STEPS = 4
+# The plain band versions launch ~18 small operations a band row (45.9-55.4
+# s a 10,000-home step on an H100 80GB HBM3): they are held against the
+# kernels over 2 steps at an iteration cap of 100 (4 check windows, the
+# first rho update, the polish), both routes at that cap.
+ADMM_BAND_PLAIN_STEPS, ADMM_BAND_PLAIN_ITERS = 2, 100
+ADMM_VARIANT_HOMES, ADMM_VARIANT_STEPS = 1000, 2
+CR_HOMES, CR_STEPS = 1000, 4
+# The CPU tests' tolerances (tests/test_torch_engine_admm.py): a first-order
+# iterate is pinned only to its 1e-4 + 1e-4·|row| stopping ball.
+ADMM_SERIES_ATOL = 1e-3
+ADMM_MIN_RATE = 0.99       # solve rate of the main path on 2015-01-01
+PER_HOME = ("p_grid", "forecast_p_grid", "p_load", "temp_in", "temp_wh", "hvac_cool_on",
+            "hvac_heat_on", "wh_heat_on", "cost", "p_pv", "u_pv_curt", "e_batt",
+            "p_batt_ch", "p_batt_disch", "p_ev_ch", "e_ev")
+
+
+def admm_refine_kernels(shapes) -> dict:
+    """``refined_banded_solve_t`` at refine 0, 1 and 2 against its plain
+    version bit for bit at each (bucket's) shape: the ADMM's band backend
+    solves at ``admm_refine`` (0 by default) every iteration and at 2 in
+    the polish, the interior point at 1.  One call's ms and device ms at
+    each refine, the plan each runs."""
+    import torch
+
+    from dragg_tpu_torch.bench_band import band_fixture
+    from dragg_tpu_torch.bench_window import cuda_ms
+    from dragg_tpu_torch.ops import band_kernels as bk
+
+    rows, err = [], 0.0
+    for si, (h, bucket, m, bw, nb) in enumerate(shapes):
+        St, r = band_fixture(m, bw, nb, seed=700 + si)
+        L, Lp = bk.banded_cholesky_t(St, bw), bk.cholesky_t_plain(St, bw)
+        torch.cuda.synchronize()
+        exact(L, Lp, f"banded_cholesky_t H = {h} {bucket} (m={m}, bw={bw}) B={nb}")
+        row = dict(horizon=h, bucket=bucket, m=m, bw=bw, B=nb, refine={})
+        for refine in ADMM_REFINES:
+            x = bk.refined_banded_solve_t(L, St, r, bw, refine)
+            xp = bk.refined_solve_t_plain(Lp, St, r, bw, refine)
+            torch.cuda.synchronize()
+            err = max(err, exact(x, xp, f"refined_banded_solve_t H = {h} {bucket} (m={m}, "
+                                        f"bw={bw}) B={nb} refine={refine}"))
+
+            def fn(refine=refine):
+                return bk.refined_banded_solve_t(L, St, r, bw, refine)
+
+            row["refine"][refine] = dict(
+                ms=cuda_ms(fn, 20), device_ms=cuda_ms(fn, 20, queued=True),
+                plan=bk.band_plan(m, bw, "solve", nb, bk._sms(St.device), refine)._asdict())
+        rows.append(row)
+        log(f"refined solve at refine {ADMM_REFINES}, H = {h} {bucket} B={nb}: "
+            + json.dumps({k: [v["ms"], v["device_ms"]] for k, v in row["refine"].items()}))
+    sums = {refine: {k: sum(r["refine"][refine][k] for r in rows) for k in ("ms", "device_ms")}
+            for refine in ADMM_REFINES}
+    return {"max_abs_err": err, "per_shape": rows, "summed": sums}
+
+
+def admm_cpu_vs_cuda() -> dict:
+    """8 homes, H = 24, ADMM_CPU_STEPS one-step chunks (each refreshing the
+    factor) on the card against the CPU, both from the CPU run's state
+    every step: the CPU tests' tolerances (solved flags, cooling duty and
+    water draws equal; the series within ADMM_SERIES_ATOL; the iteration
+    counts whole check windows apart)."""
+    import numpy as np
+
+    cpu, cuda, _ = stepwise_cpu_vs_cuda(8, 24, ADMM_CPU_STEPS, "admm", bucketed="true")
+    for key in ("correct_solve", "hvac_cool_on", "waterdraws"):
+        check(np.array_equal(cpu[key], cuda[key]), f"ADMM CPU vs CUDA: {key} differs")
+    check(bool(np.all((cpu["admm_iters"] - cuda["admm_iters"]) % CHECK_EVERY == 0)),
+          f"ADMM CPU vs CUDA iterations {cpu['admm_iters']} / {cuda['admm_iters']}")
+    worst = {k: float(np.max(np.abs(cpu[k].astype(np.float64) - cuda[k]))) for k in PER_HOME}
+    check(max(worst.values()) <= ADMM_SERIES_ATOL, f"ADMM CPU vs CUDA series: {worst}")
+    out = dict(worst=worst, iters_cpu=cpu["admm_iters"].tolist(),
+               iters_cuda=cuda["admm_iters"].tolist(),
+               solve_rate=float(cpu["correct_solve"].mean()))
+    log("ADMM CPU vs CUDA (8 homes, H = 24): " + json.dumps(out))
+    return out
+
+
+def admm_main_path(outputs_dir: str) -> dict:
+    """The 10,000-home, 24-step main path with ``solver = "admm"``,
+    backend "auto" (the dense inverse at every bucket), telemetry on:
+    solve rate, seconds and launches a step, iterations, factorizations a
+    step; no band or window kernel launched."""
+    import numpy as np
+
+    from dragg_tpu_torch.ops import admm
+
+    admm.reset_factorizations()
+    agg, res, launches, seconds = drive(os.path.join(outputs_dir, "admm"), "admm")
+    factors = dict(admm.FACTORIZATIONS)
+    stream = stream_checks(agg, res, 24, "main path (ADMM)")
+    summary, solved = check_results(res)
+    backends = agg.engine.solve_backends
+    check(backends == ["dense_inv"] * len(backends), f"ADMM backends {backends}")
+    check(all(v == 0 for v in launches.values()),
+          f"the ADMM's dense-inverse path launched kernels: {launches}")
+    rate = float(np.mean(solved))
+    check(rate >= ADMM_MIN_RATE, f"ADMM main path solve rate {rate} < {ADMM_MIN_RATE}")
+    phase = summary["phase_times"]
+    prof = step_profile(agg.engine)
+    stats = dict(
+        homes=N_HOMES, steps=24, solver="admm", backends=backends, solve_rate=rate,
+        mean_iterations=float(np.mean(summary["solver_iterations"])),
+        iterations_per_step=summary["solver_iterations"],
+        s_per_step=(phase["device_chunks"] + phase["collect"]) / 24,
+        run_s=seconds, launches=launches,
+        factorizations=factors, factorizations_per_step=sum(factors.values()) / 24,
+        # One t = 0 step (a refresh, cold start) under torch.profiler.
+        step_profile_t0=prof, stream=stream,
+    )
+    log("main path (ADMM): " + json.dumps({k: v for k, v in stats.items() if k != "stream"}))
+    return stats
+
+
+def admm_engine_run(n_homes: int, steps: int, **tpu) -> tuple:
+    """(outputs as numpy, seconds a step, launch counts, factorizations) of
+    a ``run_chunk`` of ``steps`` steps from t = 0 of the mixed community
+    under the ADMM, H = 24, on the card."""
+    import torch
+
+    from dragg_tpu_torch.ops import admm
+
+    import numpy as np
+
+    from dragg_tpu_torch.aggregator import Aggregator
+
+    cfg = community_config(n_homes, 24, "2015-01-02 00", bucketed="auto", **tpu)
+    cfg["home"]["hems"]["solver"] = "admm"
+    with tempfile.TemporaryDirectory() as d:
+        agg = Aggregator(cfg, outputs_dir=d, device="cuda")
+        agg.get_homes()
+        agg._build_engine()
+    eng = agg.engine
+    rps = np.zeros((steps, eng.params.horizon), np.float32)
+    reset_launches()
+    admm.reset_factorizations()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = eng.run_chunk(eng.init_state(), 0, rps)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / steps
+    return ({f: getattr(out, f).cpu().numpy() for f in out._fields}, sec, launch_counts(),
+            dict(admm.FACTORIZATIONS), eng)
+
+
+def admm_band_leg() -> dict:
+    """``admm_solve_backend = "band"``: 10,000 homes × ADMM_BAND_STEPS with
+    the band kernels (``band_kernel = "auto"``): the kernels launched (the
+    factor at every refactorization, the solve every iteration and in the
+    polish); then the kernels and their plain versions (``"xla"``) on the
+    card, ADMM_BAND_PLAIN_STEPS at ADMM_BAND_PLAIN_ITERS iterations,
+    bit-equal (a refresh, a stale-factor step, a rho update)."""
+    import numpy as np
+
+    kern, sec_k, launches_k, fac_k, eng = admm_engine_run(
+        N_HOMES, ADMM_BAND_STEPS, admm_solve_backend="band")
+    check(eng.solve_backends == ["band"] * len(eng.solve_backends)
+          and eng.admm_band_kernel == "auto", f"band leg: {eng.solve_backends}")
+    check(launches_k["banded_cholesky_t"] > 0 and launches_k["refined_banded_solve_t"] > 0,
+          f"the ADMM band backend launched {launches_k}")
+    check(launches_k["factor_refined_solve_t"] == 0 and launches_k[WINDOW] == 0,
+          f"the ADMM band backend launched other kernels: {launches_k}")
+    capped = dict(admm_solve_backend="band", admm_iters=ADMM_BAND_PLAIN_ITERS)
+    kern_c, _, launches_c, _, _ = admm_engine_run(N_HOMES, ADMM_BAND_PLAIN_STEPS, **capped)
+    check(launches_c["banded_cholesky_t"] > 0, f"the capped kernel run launched {launches_c}")
+    plain, sec_p, launches_p, fac_p, _ = admm_engine_run(
+        N_HOMES, ADMM_BAND_PLAIN_STEPS, band_kernel="xla", **capped)
+    check(all(v == 0 for v in launches_p.values()), f'"xla" launched kernels: {launches_p}')
+    n = ADMM_BAND_PLAIN_STEPS
+    diff = [k for k in kern_c if not np.array_equal(kern_c[k], plain[k],
+                                                    equal_nan=kern_c[k].dtype.kind == "f")]
+    check(not diff, f"ADMM band backend: the kernels differ from their plain versions at {diff}")
+    out = dict(steps=ADMM_BAND_STEPS, plain_steps=n, plain_iters=ADMM_BAND_PLAIN_ITERS,
+               launches=launches_k, launches_capped=launches_c, s_per_step=sec_k,
+               s_per_step_plain=sec_p, factorizations=fac_k, factorizations_plain=fac_p,
+               solve_rate=float(kern["correct_solve"].mean()),
+               iterations_per_step=kern["admm_iters"].tolist(), bit_equal=True)
+    log("ADMM band backend: " + json.dumps(out))
+    return out
+
+
+def admm_variants() -> dict:
+    """1,000 homes × ADMM_VARIANT_STEPS: the float32 run, the same with
+    its windows launched one by one instead of replayed as CUDA graphs
+    (within the CPU tests' tolerances; whether bit-equal is printed), and
+    each opt-in variant: a bf16 Sinv (with one refinement
+    pass: at the default 0 neither package's ADMM solves a home of the
+    16-home, 24 h QP on the CPU), the bf16x3 apply, Anderson depth 5;
+    solve rate, iterations, seconds a step printed, every series finite."""
+    import numpy as np
+
+    from dragg_tpu_torch.ops import admm
+
+    base, sec, _, _, _ = admm_engine_run(ADMM_VARIANT_HOMES, ADMM_VARIANT_STEPS)
+    out = {"f32": dict(solve_rate=float(base["correct_solve"].mean()), s_per_step=sec,
+                       iterations=base["admm_iters"].tolist())}
+    # The dense inverse's windows replayed as CUDA graphs against the same
+    # windows launched one by one: the same kernels (expected bit-equal;
+    # held to the CPU tests' tolerances, the flags equal).
+    admm.CUDA_GRAPHS = False
+    try:
+        eager, sec, _, _, _ = admm_engine_run(ADMM_VARIANT_HOMES, ADMM_VARIANT_STEPS)
+    finally:
+        admm.CUDA_GRAPHS = True
+    check(np.array_equal(base["correct_solve"], eager["correct_solve"]),
+          "ADMM: solved flags differ between the CUDA-graph and the eager windows")
+    worst = max(float(np.max(np.abs(base[k].astype(np.float64) - eager[k])))
+                for k in PER_HOME)
+    check(worst <= ADMM_SERIES_ATOL, f"ADMM: graph against eager windows: {worst}")
+    out["f32_eager"] = dict(s_per_step=sec, worst=worst, bit_equal=all(
+        np.array_equal(base[k], eager[k], equal_nan=base[k].dtype.kind == "f") for k in base))
+    for name, tpu in (("bf16_sinv_refine1", dict(admm_matvec_dtype="bf16", admm_refine=1)),
+                      ("bf16x3", dict(precision="bf16x3")),
+                      ("anderson5", dict(admm_anderson=5))):
+        got, sec, _, _, _ = admm_engine_run(ADMM_VARIANT_HOMES, ADMM_VARIANT_STEPS, **tpu)
+        check(all(np.all(np.isfinite(got[k])) for k in PER_HOME), f"ADMM {name}: non-finite")
+        out[name] = dict(solve_rate=float(got["correct_solve"].mean()), s_per_step=sec,
+                         iterations=got["admm_iters"].tolist())
+    log("ADMM variants: " + json.dumps(out))
+    return out
+
+
+def cr_check() -> dict:
+    """``band_kernel = "cr"`` on the interior point, CR_HOMES × CR_STEPS on
+    the card, each step from the split route's state, against the split
+    route (the band kernels): solved flags equal; the series within the
+    IPM's CPU-vs-card ENGINE_CPU_CUDA_ATOL, but for two degenerate faces
+    that another elimination order moves the interior point along
+    (measured on an H100 80GB HBM3): the PV curtailment, compared only
+    where the home generates (``p_pv`` > 0: at night any curtailment is
+    optimal; 0.194 apart there with p_pv equal), and the battery's
+    schedule with the grid power it moves, held to BATTERY_ATOL (0.0106
+    kWh apart); seconds a step of each."""
+    import numpy as np
+    import torch
+
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.checkpoint import tree_map
+
+    engines = {}
+    for kern in ("cr", "auto"):
+        with tempfile.TemporaryDirectory() as d:
+            agg = Aggregator(community_config(CR_HOMES, 24, "2015-01-02 00", bucketed="auto",
+                                              band_kernel=kern), outputs_dir=d, device="cuda")
+            agg.get_homes()
+            agg._build_engine()
+        engines[kern] = agg.engine
+    rp = np.zeros((1, 24), np.float32)
+    state = engines["auto"].init_state()
+    worst, secs = {}, {"cr": 0.0, "auto": 0.0}
+    reset_launches()
+    for t in range(CR_STEPS):
+        outs = {}
+        for kern in ("cr", "auto"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, o = engines[kern].run_chunk(tree_map(lambda a: a.clone(), state), t, rp)
+            torch.cuda.synchronize()
+            secs[kern] += (time.perf_counter() - t0) / CR_STEPS
+            outs[kern] = {f: getattr(o, f).cpu().numpy() for f in o._fields}
+            if kern == "auto":
+                state = nxt
+        check(np.array_equal(outs["cr"]["correct_solve"], outs["auto"]["correct_solve"]),
+              f"cr: solved flags differ from the split route at t = {t}")
+        lit = (outs["cr"]["p_pv"] > 0) | (outs["auto"]["p_pv"] > 0)
+        for k in PER_HOME + ("u_pv_curt_lit",):
+            a, b = (outs[r][k.removesuffix("_lit")].astype(np.float64) for r in ("cr", "auto"))
+            d = np.abs(a - b)[lit] if k.endswith("_lit") else np.abs(a - b)
+            worst[k] = max(worst.get(k, 0.0), float(np.max(d, initial=0.0)))
+    battery = ("e_batt", "p_batt_ch", "p_batt_disch", "p_grid", "forecast_p_grid")
+    check(all(worst[k] <= (BATTERY_ATOL if k in battery else ENGINE_CPU_CUDA_ATOL)
+              for k in worst if k != "u_pv_curt"), f"cr against the split route: {worst}")
+    out = dict(homes=CR_HOMES, steps=CR_STEPS, s_per_step_cr=secs["cr"],
+               s_per_step_split=secs["auto"], worst=worst, launches=launch_counts())
+    log("cr: " + json.dumps(out))
+    return out
+
+
+def admm_phase(outputs_dir: str, shapes, grid_shapes) -> dict:
+    """Phase 16: the ADMM (dense inverse and band backend) and cyclic
+    reduction (module docstring)."""
+    out = dict(refine_kernels=admm_refine_kernels(shapes),
+               refine_kernels_grid=admm_refine_kernels(grid_shapes))
+    highs_check("admm")
+    out["cpu_vs_cuda"] = admm_cpu_vs_cuda()
+    out["main_path"] = admm_main_path(outputs_dir)
+    out["band"] = admm_band_leg()
+    out["variants"] = admm_variants()
+    out["cr"] = cr_check()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2438,6 +2757,8 @@ def main() -> int:
         fleet = timed("13_fleet", fleet_phase, d)
         fleet_rl = timed("14_fleet_rl", fleet_rl_phase, d, rl)
         tel = timed("15_telemetry", telemetry_phase, d, stats, rstats, fleet, routes, cpu_conv)
+        admm = timed("16_admm", admm_phase, d, [r for r in shapes if r[0] == MAIN_HORIZON],
+                     grid_shapes)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -2508,6 +2829,15 @@ def main() -> int:
             launches_fleet_rl=fleet_rl["launches"][name],
             # Phase 15's A/B legs with the telemetry on (IPM, split route).
             launches_telemetry=tel["launches"][name],
+            # Phase 16: the ADMM's band backend, 10,000 homes × ADMM_BAND_STEPS.
+            launches_admm_band=admm["band"]["launches"][name],
+            **({"refine_ms": {str(k): v["ms"] for k, v in
+                              admm["refine_kernels"]["summed"].items()},
+                "refine_device_ms": {str(k): v["device_ms"] for k, v in
+                                     admm["refine_kernels"]["summed"].items()},
+                "refine_max_abs_err": max(admm["refine_kernels"]["max_abs_err"],
+                                          admm["refine_kernels_grid"]["max_abs_err"])}
+               if name == "refined_banded_solve_t" else {}),
             grid_block=dict(grid_block(grid_rows, name),
                             max_abs_err=kern_grid["max_abs_err"][name]),
         ))
@@ -2530,6 +2860,7 @@ def main() -> int:
         launches_fleet=launches_fleet[WINDOW],
         launches_fleet_rl=fleet_rl["launches"][WINDOW],
         launches_telemetry=tel["launches"][WINDOW],
+        launches_admm_band=admm["band"]["launches"][WINDOW],
         grid_block=dict(grid_block(win_grid["per_shape"]), max_abs_err=win_grid["max_abs_err"]),
     ))
     phases["whole_script"] = round(time.perf_counter() - t_start, 1)
@@ -2541,7 +2872,7 @@ def main() -> int:
                    "routes_h48": routes48, "resume_pipeline": resume, "resolve": resolve,
                    "band_kernel_xla": xla, "rl": rl, "kernels_grid": kern_grid,
                    "window_grid": win_grid, "fleet": fleet, "fleet_rl": fleet_rl,
-                   "telemetry": tel, "phases": phases}, f, indent=1)
+                   "telemetry": tel, "admm": admm, "phases": phases}, f, indent=1)
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": entries}))
     print(card)

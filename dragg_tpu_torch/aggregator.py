@@ -144,7 +144,11 @@ class Aggregator:
 
         self.config = config if isinstance(config, dict) else load_config(config)
         self.config = apply_scenarios(self.config, self.data_dir)
-        if self.config.get("tpu", {}).get("sharded", "auto") is True:
+        sharded = self.config.get("tpu", {}).get("sharded", "auto")
+        if sharded not in ("auto", True, False):
+            raise ValueError(
+                f"tpu.sharded must be 'auto', true, or false, got {sharded!r}")
+        if sharded is True:
             raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
         # [fleet]: C communities in one engine; community.total_number_homes
         # stays per community.  community_base is the global index of the
@@ -258,8 +262,17 @@ class Aggregator:
         B = len(self.all_homes) // self.n_communities
         for c in range(self.n_communities):
             check_home_configs(self.all_homes[c * B:(c + 1) * B], self.config)
-        with open(homes_file, "w") as f:
+        self.write_home_configs()
+
+    def write_home_configs(self) -> None:
+        """Persist the population (dragg/aggregator.py:846-854)."""
+        with open(self._homes_cache_file(), "w") as f:
             json.dump(self.all_homes, f, indent=4)
+
+    def reset_seed(self, new_seed: int) -> None:
+        """Reset the population seed (dragg/aggregator.py:255-261); takes
+        effect on the next ``get_homes()``."""
+        self.config["simulation"]["random_seed"] = int(new_seed)
 
     def _build_engine(self) -> None:
         hems = self.config["home"]["hems"]
@@ -359,6 +372,15 @@ class Aggregator:
         self.baseline_agg_load_list.extend(float(v) for v in agg_loads)
         self._solve_iters.extend(int(v) for v in host["admm_iters"])
         self.bank_fallback_total += float(np.sum(host["bank_fallback_count"]))
+        # $VERBOSE: one solver line a chunk, the reference's per-solve
+        # verbosity toggle (dragg/mpc_calc.py:81-86) batched per chunk.
+        if os.environ.get("VERBOSE"):
+            rate = float(host["correct_solve"].mean())
+            self.log.logger.progress(
+                f"chunk t={self.timestep}..{self.timestep + n_steps}: "
+                f"solve_rate={rate:.4f}, "
+                f"mean ADMM iters={host['admm_iters'].mean():.0f}, "
+                f"agg_load range=[{agg_loads.min():.1f}, {agg_loads.max():.1f}] kW")
         n_repair_failed = float(np.sum(host["repair_failed"]))
         if self._telemetry_on:
             # One typed record per chunk on the run's stream.

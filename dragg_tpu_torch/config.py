@@ -68,8 +68,7 @@ def configured_solver(config: dict) -> str:
     return str(config["home"]["hems"].get("solver", "ipm"))
 
 
-# Batched solver families of the JAX package (this package runs "ipm" and
-# "reluqp"; "admm" raises NotImplementedError in engine.engine_params),
+# Batched solver families of the JAX package (this package runs all three),
 # plus the mapping from the reference's solver names (the GLPK_MI/ECOS/
 # GUROBI table, dragg/mpc_calc.py:141-145, and the shipped config.toml
 # default "GLPK_MI") onto them, so an unmodified reference config runs: the
@@ -215,8 +214,8 @@ _DEFAULT: dict[str, Any] = {
             "sub_subhourly_steps": 6,
             "discount_factor": 0.92,
             # Solver family (reference analog: the GLPK_MI/ECOS/GUROBI
-            # table, dragg/mpc_calc.py:141-145).  Only "ipm", the batched
-            # Mehrotra predictor-corrector, is ported.
+            # table, dragg/mpc_calc.py:141-145): "ipm" (the batched Mehrotra
+            # predictor-corrector), "reluqp" or "admm".
             "solver": "ipm",
         },
     },
@@ -326,29 +325,30 @@ _DEFAULT: dict[str, Any] = {
     },
     # Solver and engine settings (no reference analog).
     "tpu": {
-        # ADMM and ReLU-QP solver settings.  ReLU-QP ("reluqp") reads
-        # admm_refactor_every (sim steps between rho-bank refreshes),
-        # admm_patience, the five reluqp_* keys, precision, iter_kernel
-        # and, below, admm_sigma/admm_alpha/admm_eps/admm_reg/admm_rho.
-        # The ADMM's own keys (admm_iters, admm_rho_update_every,
-        # admm_matvec_dtype, admm_refine, admm_anderson,
-        # admm_banded_factor, admm_solve_backend) are not ported.  admm_rho
-        # and admm_reg also set the IPM's warm_rho carry and proximal term.
+        # ADMM and ReLU-QP solver settings.  Both read
+        # admm_refactor_every (sim steps between factor / rho-bank
+        # refreshes), admm_patience, precision and, below,
+        # admm_sigma/admm_alpha/admm_eps/admm_reg/admm_rho; ReLU-QP the
+        # five reluqp_* keys and iter_kernel.  admm_rho and admm_reg also
+        # set the IPM's warm_rho carry and proximal term.
         "admm_iters": 1500,
         "admm_refactor_every": 8,
         "admm_patience": 4,
-        "admm_rho_update_every": 4,
-        "admm_matvec_dtype": "f32",
-        "admm_refine": 0,
-        "admm_anderson": 0,
-        "admm_banded_factor": True,
-        "admm_solve_backend": "auto",
+        "admm_rho_update_every": 4,  # rho updates every N check windows
+        "admm_matvec_dtype": "f32",  # "bf16": the dense Sinv stored in bf16
+        "admm_refine": 0,         # refinement passes per in-loop solve
+        "admm_anderson": 0,       # Anderson-acceleration depth (0 = off)
+        "admm_banded_factor": True,  # factor S by RCM + band Cholesky
+        "admm_solve_backend": "auto",  # "dense_inv" | "band" (the band
+                                       # kernels) | "auto": band past 1 GiB
+                                       # of a bucket's dense Sinv
         "reluqp_rho": 0.1,
         "reluqp_rho_factor": 6.0,
         "reluqp_bank": 5,
         "reluqp_iters": 2000,
         "reluqp_tail_iters": 300,
-        "precision": "f32",       # ReLU-QP hot-loop matmuls: "f32" | "bf16x3"
+        "precision": "f32",       # ReLU-QP's and the ADMM's dense hot-loop
+                                  # matmuls: "f32" | "bf16x3"
         "iter_kernel": "auto",    # ReLU-QP check window: "auto" = "lax" (einsum
                                   # chain); "pallas" = the fused CUDA kernel of
                                   # ops/iter_kernels.py (f32 only)
@@ -375,8 +375,9 @@ _DEFAULT: dict[str, Any] = {
                                   # the factor kernel then the solve kernel
         "band_kernel": "auto",    # "auto" | "pallas": the band kernels of
                                   # ops/band_kernels.py; "xla": their plain
-                                  # versions; "cr" (cyclic reduction) is
-                                  # not ported
+                                  # versions; "cr": cyclic reduction
+                                  # (ops/block_cr.py) for the IPM, the
+                                  # plain versions for the ADMM
         "bucketed": "auto",       # solve each home-type bucket at its own
                                   # (n, m) shape; "auto" buckets when the
                                   # community has >= 32 homes and >= 25 % of

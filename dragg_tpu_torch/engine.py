@@ -11,9 +11,13 @@ Each step, for every home-type bucket:
    package home by home (dragg/mpc_calc.py:206-231,302-309);
 3. assembles the fixed-shape batched QP and solves it with the configured
    solver family: the interior point (``ops/ipm.py``), whose band factor
-   and solves run in the CUDA kernels of ``ops/band_kernels.py``, or
-   ReLU-QP (``ops/reluqp.py``), whose check windows run in the CUDA kernel
-   of ``ops/iter_kernels.py`` under ``tpu.iter_kernel = "pallas"``;
+   and solves run in the CUDA kernels of ``ops/band_kernels.py`` (or by
+   cyclic reduction, ``tpu.band_kernel = "cr"``); ReLU-QP
+   (``ops/reluqp.py``), whose check windows run in the CUDA kernel of
+   ``ops/iter_kernels.py`` under ``tpu.iter_kernel = "pallas"``; or the
+   ADMM (``ops/admm.py``), whose solve backend is resolved per bucket:
+   a dense explicit inverse, or the band kernels
+   (``tpu.admm_solve_backend = "band"``);
 4. pins the first action to integer duty counts, in closed form
    (``integer_repair = "project"``) or by a second solve with the three
    k = 0 counts pinned in the box (``"resolve"``);
@@ -32,9 +36,9 @@ grid-power block, and comfort relief.
 PyTorch runs eagerly, so a chunk is a Python loop over steps; the per-home
 arrays (``HomeBatch``, ``CommunityState``, ``StepOutputs``) are
 NamedTuples of tensors in the JAX package's layout, homes first.  The
-ReLU-QP rho bank is a per-bucket carry that lives across the steps of a
-chunk and refreshes on the chunk's first step and every
-``admm_refactor_every`` sim steps (``run_chunk``).
+ReLU-QP rho bank and the ADMM's ``FactorCarry`` are per-bucket carries
+that live across the steps of a chunk and refresh on the chunk's first
+step and every ``admm_refactor_every`` sim steps (``run_chunk``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,13 @@ from dragg_tpu_torch.device import resolve_device
 from dragg_tpu_torch.homes import TYPE_CODES, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
 from dragg_tpu_torch.models.fallback import fallback_control
+from dragg_tpu_torch.ops.admm import (
+    _schur_structure_for,
+    admm_solve_qp_cached,
+    init_factor_carry,
+    resolve_backend,
+)
+from dragg_tpu_torch.ops.banded import plan_for
 from dragg_tpu_torch.ops.dual import primal
 from dragg_tpu_torch.ops.ipm import band_plan, ipm_solve_qp
 from dragg_tpu_torch.ops.precision import validate_precision
@@ -151,6 +162,7 @@ class _TypeBucket(NamedTuple):
                              # observatory's worst-k names)
     env_off: torch.Tensor    # (n,) offset into the environment series
     comm_idx: torch.Tensor   # (n,) community: the event-timeline row
+    solve_backend: str       # the ADMM's in-loop solve: "dense_inv" | "band"
 
 
 class CommunityState(NamedTuple):
@@ -167,7 +179,8 @@ class CommunityState(NamedTuple):
     warm_x: torch.Tensor      # (n, nvar) warm-start primal (0 columns for the
                               # interior point unless ipm_warm)
     warm_y_box: torch.Tensor  # (n, nvar) warm-start box duals
-    warm_rho: torch.Tensor    # (n,) warm-start rho (ReLU-QP's bank hint)
+    warm_rho: torch.Tensor    # (n,) warm-start rho (the ADMM's rho, ReLU-QP's
+                              # bank hint)
     key: torch.Tensor         # (2,) PRNG key words (legacy carry, as in JAX)
 
 
@@ -234,10 +247,10 @@ class StepAux(NamedTuple):
 
 
 class EngineParams(NamedTuple):
-    """Static engine configuration (the interior point's and ReLU-QP's
-    share of the JAX package's EngineParams)."""
+    """Static engine configuration (the JAX package's EngineParams; the
+    IPM's proximal term is ``reg``, the ADMM's initial rho ``warm_rho``)."""
 
-    solver: str         # "ipm" | "reluqp"
+    solver: str         # "ipm" | "reluqp" | "admm"
     horizon: int        # H — decision steps (hems horizon * dt)
     dt: int             # steps per hour
     s: float            # sub_subhourly_steps (duty-cycle denominator)
@@ -245,11 +258,18 @@ class EngineParams(NamedTuple):
     start_index: int    # index of sim t=0 in the environment series
     reg: float          # proximal regularization (tpu.admm_reg)
     warm_rho: float     # initial warm_rho carry (tpu.admm_rho)
-    admm_eps: float     # ReLU-QP stopping tolerance (abs = rel)
-    admm_sigma: float   # ReLU-QP σ
-    admm_alpha: float   # ReLU-QP over-relaxation α
+    admm_eps: float     # ADMM / ReLU-QP stopping tolerance (abs = rel)
+    admm_sigma: float   # ADMM / ReLU-QP σ
+    admm_alpha: float   # ADMM / ReLU-QP over-relaxation α
     admm_patience: int  # check windows without progress before stopping
-    admm_refactor_every: int  # sim steps between rho-bank refreshes
+    admm_refactor_every: int  # sim steps between factor / rho-bank refreshes
+    admm_iters: int     # ADMM iteration cap
+    admm_rho_update_every: int  # ADMM rho-update cadence (check windows)
+    admm_matvec_dtype: str  # "f32" | "bf16" storage of the ADMM's dense Sinv
+    admm_refine: int    # refinement passes per in-loop ADMM solve
+    admm_anderson: int  # ADMM Anderson-acceleration depth (0 = off)
+    admm_banded_factor: bool  # factor the ADMM's Schur complement by band Cholesky
+    admm_solve_backend: str  # "auto" | "dense_inv" | "band"
     reluqp_rho: float   # centre of the rho bank
     reluqp_rho_factor: float  # geometric step of the rho bank
     reluqp_bank: int    # rho-bank entries
@@ -264,7 +284,8 @@ class EngineParams(NamedTuple):
     ipm_eps: float      # IPM stopping tolerance
     ipm_freeze_zmax: float  # divergence-freeze dual threshold (scaled space)
     band_fused: bool    # factor + predictor solve in one kernel launch
-    band_kernel: str    # "auto" | "pallas" (the CUDA kernels) | "xla" (plain versions)
+    band_kernel: str    # "auto" | "pallas" (the CUDA kernels) | "xla" (plain
+                        # versions) | "cr" (cyclic reduction; the ADMM: "xla")
     integer_first_action: bool  # pin the rounded k=0 duty counts
     integer_repair: str  # "project" (closed-form k=1 update) | "resolve" (pinned re-solve)
     repair_eps: float   # IPM tolerance of the "resolve" re-solve
@@ -324,6 +345,10 @@ class Engine:
         # as in the JAX package; "pallas" runs ops/iter_kernels.fused_window
         # (the CUDA kernel on the card, its plain version on the CPU).
         self._iter_kernel = "lax" if params.iter_kernel == "auto" else params.iter_kernel
+        # The ADMM carries its band factor as one array, so "cr" (whose
+        # factor is a dict) runs the plain band versions there; the IPM
+        # runs cyclic reduction fully.
+        self._admm_band_kernel = "xla" if params.band_kernel == "cr" else params.band_kernel
         if check_mask is None:
             check_mask = np.ones(batch.n_homes)
         cmask = np.asarray(check_mask, dtype=np.float64)
@@ -359,9 +384,18 @@ class Engine:
             sub = slice_batch(batch, a, b)
             row = lambda k: torch.as_tensor(rows[k][a:b], dtype=torch.int64,  # noqa: E731
                                             device=dev)
+            lay = QPLayout(H, spec)
+            static = build_qp_static(sub, H, params.dt, spec, device=dev)
+            # The ADMM's backend, per bucket (one shard): "auto" goes banded
+            # only past BAND_AUTO_BYTES of dense Sinv.
+            plan = (plan_for(_schur_structure_for(static.pattern), lay.m_eq)
+                    if params.admm_banded_factor else None)
+            backend = resolve_backend(
+                params.admm_solve_backend, b - a, lay.m_eq, plan is not None,
+                elem_bytes=2 if params.admm_matvec_dtype == "bf16" else 4)
             self._buckets.append(_TypeBucket(
-                name=tname, ordinal=ordinal, lay=QPLayout(H, spec), comm_start=a, n=b - a,
-                static=build_qp_static(sub, H, params.dt, spec, device=dev),
+                name=tname, ordinal=ordinal, lay=lay, comm_start=a, n=b - a,
+                static=static,
                 batch=home_batch_from_numpy(sub._asdict(), dev),
                 check_mask=torch.as_tensor(cmask[a:b], dtype=F32, device=dev),
                 noise_idx=row("noise_idx"),
@@ -370,6 +404,7 @@ class Engine:
                 home_idx=row("home_idx").to(torch.int32),
                 env_off=row("env_off"),
                 comm_idx=row("comm_idx"),
+                solve_backend=backend,
             ))
         self._obs_edges = torch.tensor(OBS_ITER_EDGES, dtype=torch.int32, device=dev)
 
@@ -390,6 +425,16 @@ class Engine:
     def iter_kernel(self) -> str:
         """The resolved ReLU-QP check-window route: "lax" or "pallas"."""
         return self._iter_kernel
+
+    @property
+    def admm_band_kernel(self) -> str:
+        """The ADMM's band route: ``tpu.band_kernel``, with "cr" as "xla"."""
+        return self._admm_band_kernel
+
+    @property
+    def solve_backends(self) -> list[str]:
+        """The ADMM's resolved in-loop solve backend of each bucket."""
+        return [c.solve_backend for c in self._buckets]
 
     def bucket_info(self) -> list[dict]:
         """One dict per bucket, in ordinal order (the observatory's
@@ -501,10 +546,24 @@ class Engine:
 
     def init_factor(self):
         """The solver carry at a chunk's start, one per bucket (a tuple)
-        when bucketed: None, because a chunk's first step always builds
-        ReLU-QP's scalings and rho bank afresh (the interior point carries
-        nothing).  ``_solve`` returns the carry the next step reuses."""
-        return (None,) * len(self._buckets) if self._bucketed else None
+        when bucketed: the ADMM's zero ``FactorCarry``
+        (``ops.admm.init_factor_carry``, its band factor transposed under
+        the kernels), None for ReLU-QP, whose chunk's first step builds
+        the scalings and rho bank afresh, and for the interior point,
+        which carries nothing.  A chunk's first step always refreshes;
+        ``_solve`` returns the carry the next step reuses."""
+        carries = tuple(self._init_factor_bucket(c) for c in self._buckets)
+        return carries if self._bucketed else carries[0]
+
+    def _init_factor_bucket(self, ctx: _TypeBucket):
+        p = self.params
+        if p.solver != "admm":
+            return None
+        return init_factor_carry(ctx.n, ctx.static.pattern, device=self.device,
+                                 matvec_dtype=p.admm_matvec_dtype,
+                                 solve_backend=ctx.solve_backend,
+                                 banded_factor=p.admm_banded_factor,
+                                 band_kernel=self._admm_band_kernel)
 
     # ----------------------------------------------------------------- step
     def _prepare(self, ctx: _TypeBucket, state: CommunityState, t: int, rp):
@@ -613,30 +672,8 @@ class Engine:
         QP, then the integer pin of the first action.  Returns (solution,
         solver carry, relaxed solution, repair_failed)."""
         p = self.params
-        if p.solver == "reluqp":
-            # The pre-factorized dense family: the carry holds the rho bank;
-            # ``refresh`` re-equilibrates and rebuilds it.  Warm-started from
-            # the receding-horizon shift of the last relaxed solution.
-            def run_solver(l_box, u_box, fac, ref, x0, y0, rho_w):
-                return reluqp_solve_qp_cached(
-                    ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
-                    fac, ref,
-                    rho0=p.reluqp_rho, rho_factor=p.reluqp_rho_factor,
-                    bank=p.reluqp_bank, sigma=p.admm_sigma, alpha=p.admm_alpha,
-                    eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
-                    iters=p.reluqp_iters, patience=p.admm_patience,
-                    tail_iters=p.reluqp_tail_iters, precision=p.precision,
-                    iter_kernel=self._iter_kernel,
-                    x0=x0, y_box0=y0, rho_warm=rho_w)
-
-            relaxed, factor = run_solver(qp.l_box, qp.u_box, factor, refresh,
-                                         state.warm_x, state.warm_y_box, state.warm_rho)
-            # The pinned re-solve starts warm from the relaxed solution on
-            # the bank just built.
-            resolve = lambda l2, u2: run_solver(  # noqa: E731
-                l2, u2, factor, False, relaxed.x, relaxed.y_box, relaxed.rho)[0]
-        else:
-            def run_solver(l_box, u_box, eps=p.ipm_eps):
+        if p.solver == "ipm":
+            def run_ipm(l_box, u_box, eps=p.ipm_eps):
                 return ipm_solve_qp(
                     ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
                     reg=p.reg, iters=p.ipm_iters,
@@ -646,10 +683,52 @@ class Engine:
                     freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
                     band_kernel=p.band_kernel)
 
-            relaxed = run_solver(qp.l_box, qp.u_box)
+            relaxed = run_ipm(qp.l_box, qp.u_box)
             # The pinned re-solve runs cold at the looser repair_eps: what
             # it applies is the pinned counts themselves.
-            resolve = lambda l2, u2: run_solver(l2, u2, eps=p.repair_eps)  # noqa: E731
+            resolve = lambda l2, u2: run_ipm(l2, u2, eps=p.repair_eps)  # noqa: E731
+        else:
+            if p.solver == "reluqp":
+                # The pre-factorized dense family: the carry holds the rho
+                # bank; ``refresh`` re-equilibrates and rebuilds it.
+                def run_solver(l_box, u_box, fac, ref, x0, y0, rho_w):
+                    return reluqp_solve_qp_cached(
+                        ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
+                        fac, ref,
+                        rho0=p.reluqp_rho, rho_factor=p.reluqp_rho_factor,
+                        bank=p.reluqp_bank, sigma=p.admm_sigma, alpha=p.admm_alpha,
+                        eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
+                        iters=p.reluqp_iters, patience=p.admm_patience,
+                        tail_iters=p.reluqp_tail_iters, precision=p.precision,
+                        iter_kernel=self._iter_kernel,
+                        x0=x0, y_box0=y0, rho_warm=rho_w)
+            else:
+                # The ADMM: the carry holds the scalings and the Schur
+                # factor; ``refresh`` re-equilibrates and refactors, and
+                # between refreshes the solve refines against the stale
+                # factor.
+                def run_solver(l_box, u_box, fac, ref, x0, y0, rho_w):
+                    return admm_solve_qp_cached(
+                        ctx.static.pattern, qp.vals, qp.b_eq, l_box, u_box, qp.q,
+                        fac, ref,
+                        rho=p.warm_rho, sigma=p.admm_sigma, alpha=p.admm_alpha,
+                        eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
+                        iters=p.admm_iters, patience=p.admm_patience,
+                        rho_update_every=p.admm_rho_update_every,
+                        matvec_dtype=p.admm_matvec_dtype, precision=p.precision,
+                        refine=p.admm_refine, anderson=p.admm_anderson,
+                        banded_factor=p.admm_banded_factor,
+                        solve_backend=ctx.solve_backend,
+                        band_kernel=self._admm_band_kernel,
+                        x0=x0, y_box0=y0, rho0=rho_w)
+
+            # Both are warm-started from the receding-horizon shift of the
+            # last relaxed solution; the pinned re-solve starts warm from
+            # this step's relaxed solution on the factor (or bank) just built.
+            relaxed, factor = run_solver(qp.l_box, qp.u_box, factor, refresh,
+                                         state.warm_x, state.warm_y_box, state.warm_rho)
+            resolve = lambda l2, u2: run_solver(  # noqa: E731
+                l2, u2, factor, False, relaxed.x, relaxed.y_box, relaxed.rho)[0]
         if not p.integer_first_action:
             return (relaxed, factor, relaxed,
                     torch.zeros((), dtype=F32, device=self.device))
@@ -1047,10 +1126,6 @@ def engine_params(config, start_index: int) -> EngineParams:
     tpu_cfg = config.get("tpu", {})
     horizon = max(1, int(hems["prediction_horizon"]) * dt)
     solver = resolve_solver_family(config)
-    if solver == "admm":
-        raise NotImplementedError(
-            "home.hems.solver: the ADMM ('admm') is not ported; 'ipm' and "
-            "'reluqp' are")
     repair_mode = str(tpu_cfg.get("integer_repair", "project"))
     if repair_mode not in ("project", "resolve"):
         raise ValueError(
@@ -1064,10 +1139,6 @@ def engine_params(config, start_index: int) -> EngineParams:
     if kern not in ("auto", "pallas", "xla", "cr"):
         raise ValueError(
             f"tpu.band_kernel must be auto|pallas|xla|cr, got {kern!r}")
-    if kern == "cr":
-        raise NotImplementedError(
-            "tpu.band_kernel: cyclic reduction ('cr') is not ported; 'auto' "
-            "and 'pallas' run the CUDA band kernels, 'xla' their plain versions")
     precision = validate_precision(str(tpu_cfg.get("precision", "f32")))
     iter_kernel = str(tpu_cfg.get("iter_kernel", "auto"))
     if iter_kernel not in ("auto", "pallas", "lax"):
@@ -1092,6 +1163,13 @@ def engine_params(config, start_index: int) -> EngineParams:
         admm_alpha=float(tpu_cfg.get("admm_alpha", 1.6)),
         admm_patience=int(tpu_cfg.get("admm_patience", 4)),
         admm_refactor_every=int(tpu_cfg.get("admm_refactor_every", 8)),
+        admm_iters=int(tpu_cfg.get("admm_iters", 1500)),
+        admm_rho_update_every=int(tpu_cfg.get("admm_rho_update_every", 4)),
+        admm_matvec_dtype=str(tpu_cfg.get("admm_matvec_dtype", "f32")),
+        admm_refine=int(tpu_cfg.get("admm_refine", 0)),
+        admm_anderson=int(tpu_cfg.get("admm_anderson", 0)),
+        admm_banded_factor=bool(tpu_cfg.get("admm_banded_factor", True)),
+        admm_solve_backend=str(tpu_cfg.get("admm_solve_backend", "auto")),
         reluqp_rho=float(tpu_cfg.get("reluqp_rho", 0.1)),
         reluqp_rho_factor=float(tpu_cfg.get("reluqp_rho_factor", 6.0)),
         reluqp_bank=max(1, int(tpu_cfg.get("reluqp_bank", 5))),

@@ -48,6 +48,36 @@ def engine_state_from_numpy(state, device):
         {k: np.asarray(v) for k, v in state._asdict().items()}, device)
 
 
+def factor_carry_from_numpy(fields: dict, device, band_kernel: str = "xla"):
+    """The JAX ADMM's ``FactorCarry._asdict()`` of numpy arrays (its Sinv a
+    dense (B, m, m) inverse, float32 or bfloat16, or a (B, m, bw+1) band
+    factor from its scan route) → the port's ``FactorCarry`` on either
+    backend: a band factor is transposed to (m, bw+1, B) where the port's
+    ADMM runs the band kernels (``band_kernel`` "auto" or "pallas"), and
+    a bfloat16 inverse stays bfloat16."""
+    from dragg_tpu_torch.ops.admm import FactorCarry
+
+    kw = {k: to_tensor(fields[k], device) for k in FactorCarry._fields if k != "Sinv"}
+    sinv = np.asarray(fields["Sinv"])
+    band = sinv.shape[-1] != sinv.shape[-2]
+    if sinv.dtype.name == "bfloat16":
+        t = torch.tensor(sinv.astype(np.float32), device=device).to(torch.bfloat16)
+    else:
+        t = to_tensor(sinv, device)
+    if band and band_kernel != "xla":
+        t = t.permute(1, 2, 0).contiguous()
+    return FactorCarry(Sinv=t, **kw)
+
+
+def engine_factor_from_numpy(factor, device, band_kernel: str = "xla"):
+    """The JAX engine's ADMM solver carry (a FactorCarry, or a tuple of
+    them, one per bucket) → the port's (:func:`factor_carry_from_numpy`)."""
+    if isinstance(factor, tuple) and not hasattr(factor, "_fields"):
+        return tuple(engine_factor_from_numpy(f, device, band_kernel) for f in factor)
+    return factor_carry_from_numpy({k: np.asarray(v) for k, v in factor._asdict().items()},
+                                   device, band_kernel)
+
+
 def agent_carry_from_numpy(fields: dict, device):
     """A linear ``AgentCarry._asdict()`` of numpy arrays → an AgentCarry of
     tensors."""

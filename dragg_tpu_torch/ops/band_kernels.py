@@ -177,11 +177,7 @@ def cholesky_t_plain(St: torch.Tensor, bw: int) -> torch.Tensor:
 
 def refined_solve_t_plain(Lt, St, rt, bw: int, refine: int) -> torch.Tensor:
     """Plain version of :func:`refined_banded_solve_t`."""
-    Lb, Sb, r = _to_b(Lt), _to_b(St), _to_b(rt)
-    x = bd.banded_solve(Lb, r, bw)
-    for _ in range(refine):
-        x = x + bd.banded_solve(Lb, r - bd.band_matvec(Sb, x, bw), bw)
-    return _from_b(x)
+    return _from_b(bd.refined_banded_solve(_to_b(Lt), _to_b(St), _to_b(rt), bw, refine))
 
 
 def factor_solve_t_plain(St, rt, bw: int, refine: int):
@@ -274,11 +270,42 @@ def make_band_ops(plan, device, fused: bool = False, kernel: str = "auto"):
     the split route (factor kernel, then solve kernel) is the one the TPU
     ran.  ``kernel`` is ``tpu.band_kernel``: "auto" and "pallas" call the
     kernels' wrappers (which launch on a CUDA tensor), "xla" the plain
-    versions on any device, as the JAX package's scan path."""
-    if kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"make_band_ops: band kernel {kernel!r} not in auto|pallas|xla")
+    versions on any device, as the JAX package's scan path, and "cr"
+    block cyclic reduction (``ops/block_cr.py``, plain PyTorch on any
+    device): its factor is an opaque dict, and it reads the transposed
+    band through a ``(B, m, bw+1)`` view, converted once per call, never
+    per row.  "cr" has no fused route."""
+    if kernel not in ("auto", "pallas", "xla", "cr"):
+        raise ValueError(f"make_band_ops: band kernel {kernel!r} not in auto|pallas|xla|cr")
     bw = plan.bw
     index = bd.plan_index(plan, device)
+
+    def add_diag_fn(Sb, rel):
+        Sb = Sb.clone()
+        Sb[:, 0, :] += rel * torch.amax(Sb[:, 0, :], dim=0, keepdim=True)
+        return Sb
+
+    def scatter_fn(c):
+        return band_scatter_t(plan, c, index)
+
+    if kernel == "cr":
+        from dragg_tpu_torch.ops import block_cr
+
+        def cr_chol(St):
+            return block_cr.cr_factor(_to_b(St), bw)
+
+        def cr_solve(Lf, St, rp, refine):
+            v = block_cr.cr_solve(Lf, rp)
+            for _ in range(refine):
+                v = v + block_cr.cr_solve(Lf, rp - bd.band_matvec(_to_b(St), v, bw))
+            return v
+
+        def cr_factor_solve(St, rp, refine):
+            Lf = cr_chol(St)
+            return Lf, cr_solve(Lf, St, rp, refine)
+
+        return scatter_fn, cr_chol, cr_solve, add_diag_fn, cr_factor_solve
+
     plain = kernel == "xla"
     chol = cholesky_t_plain if plain else banded_cholesky_t
     solve = refined_solve_t_plain if plain else refined_banded_solve_t
@@ -290,11 +317,6 @@ def make_band_ops(plan, device, fused: bool = False, kernel: str = "auto"):
     def solve_fn(Lb, Sb, rp, refine):
         return solve(Lb, Sb, rp.T.contiguous(), bw, refine).T
 
-    def add_diag_fn(Sb, rel):
-        Sb = Sb.clone()
-        Sb[:, 0, :] += rel * torch.amax(Sb[:, 0, :], dim=0, keepdim=True)
-        return Sb
-
     if fused:
         def factor_solve_fn(Sb, rp, refine):
             Lb, x = factor_solve(Sb, rp.T.contiguous(), bw, refine)
@@ -304,5 +326,4 @@ def make_band_ops(plan, device, fused: bool = False, kernel: str = "auto"):
             Lb = chol_fn(Sb)
             return Lb, solve_fn(Lb, Sb, rp, refine)
 
-    return (lambda c: band_scatter_t(plan, c, index),
-            chol_fn, solve_fn, add_diag_fn, factor_solve_fn)
+    return scatter_fn, chol_fn, solve_fn, add_diag_fn, factor_solve_fn

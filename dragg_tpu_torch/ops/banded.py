@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dragg_tpu_torch.ops.precision import mxu_einsum
+
 MAX_BAND = 12  # plan_for gives up beyond this bandwidth (the IPM then raises)
 
 
@@ -195,3 +197,30 @@ def banded_solve(Lb: torch.Tensor, r: torch.Tensor, bw: int) -> torch.Tensor:
     """S⁻¹ r (band-space) via forward + backward substitution; r is (B, m)."""
     y = banded_forward_solve(Lb, r[..., None], bw)
     return banded_backward_solve(Lb, y, bw)[..., 0]
+
+
+def refined_banded_solve(Lb: torch.Tensor, Sb: torch.Tensor, r: torch.Tensor, bw: int,
+                         refine: int) -> torch.Tensor:
+    """S⁻¹ r by :func:`banded_solve`, then ``refine`` passes of
+    x += (L Lᵀ)⁻¹ (r − S x) against the band S (the JAX package's scan
+    path of ``pallas_band.make_band_ops``)."""
+    x = banded_solve(Lb, r, bw)
+    for _ in range(refine):
+        x = x + banded_solve(Lb, r - band_matvec(Sb, x, bw), bw)
+    return x
+
+
+def banded_explicit_inverse(plan: BandPlan, contrib: torch.Tensor) -> torch.Tensor:
+    """S⁻¹ in the original row order, dense (B, m, m), from the Schur
+    entry values: the band Cholesky of the permuted S, one banded
+    forward solve against I for L⁻¹, the Gram product S⁻¹ = L⁻ᵀL⁻¹ (one
+    batched GEMM, pinned float32) and the inverse permutation.  The two
+    band loops run about 2m rows of a few operations each."""
+    m, bw = plan.m, plan.bw
+    B = contrib.shape[0]
+    Lb = banded_cholesky(band_scatter(plan, contrib), bw)
+    eye = torch.eye(m, dtype=contrib.dtype, device=contrib.device).expand(B, m, m)
+    Linv = banded_forward_solve(Lb, eye, bw)            # (B, m, m), permuted
+    Sinv_p = mxu_einsum("bkm,bkn->bmn", Linv, Linv)
+    inv = torch.as_tensor(plan.inv, dtype=torch.long, device=contrib.device)
+    return Sinv_p[:, inv][:, :, inv]

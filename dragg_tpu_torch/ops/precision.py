@@ -1,8 +1,9 @@
 """Mixed-precision policy for the dense solver hot loop (counterpart of
 ``dragg_tpu/ops/precision.py``).
 
-Every dense contraction of the ReLU-QP iteration (``ops/reluqp.py``)
-routes through :func:`mxu_einsum`, and the residual/convergence path
+Every dense contraction of the ReLU-QP iteration (``ops/reluqp.py``) and
+of the ADMM's dense-inverse apply (``ops/admm.py``) routes through
+:func:`mxu_einsum`, and the residual/convergence path
 declares itself with :func:`f32_guard`.
 
 Two policies (``tpu.precision``):
@@ -50,10 +51,18 @@ def _split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def mxu_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
-               precision: str = "f32") -> torch.Tensor:
+               precision: str = "f32", out_dtype=None) -> torch.Tensor:
     """The dense contraction of the solver hot path (module docstring).
-    Accumulation is float32 under every policy."""
+    Accumulation is float32 under every policy.
+
+    ``out_dtype`` is the JAX package's ``preferred_element_type``: under
+    ``"f32"`` both operands are cast to it before the contraction, so the
+    ADMM's bf16 ``Sinv`` (``admm_matvec_dtype = "bf16"``) contracts as
+    exact bf16 products summed in float32, never as a bf16 einsum whose
+    output cuBLAS would round to bf16."""
     if precision == "f32":
+        if out_dtype is not None:
+            a, b = a.to(out_dtype), b.to(out_dtype)
         return torch.einsum(spec, a, b)
     validate_precision(precision)
     a_hi, a_lo = (t.float() for t in _split_bf16(a))
@@ -63,7 +72,8 @@ def mxu_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
         return torch.einsum(spec, x, y)
 
     # Small cross terms first, head term last, as the JAX package.
-    return (p(a_lo, b_hi) + p(a_hi, b_lo)) + p(a_hi, b_hi)
+    out = (p(a_lo, b_hi) + p(a_hi, b_lo)) + p(a_hi, b_hi)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def f32_guard(x: torch.Tensor, what: str) -> torch.Tensor:

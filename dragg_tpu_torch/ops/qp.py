@@ -366,6 +366,16 @@ def form_schur_sparse(ss: SchurStructure, m: int, vals_s, Dinv, index=None) -> t
                                               vals_s, Dinv))
 
 
+def densify_A(pat: SparsePattern, vals: torch.Tensor) -> torch.Tensor:
+    """The dense (B, m, n) A_eq from the sparse values (tests and CPU
+    cross-checks); duplicate entries add."""
+    B = vals.shape[0]
+    flat = torch.as_tensor(np.asarray(pat.rows) * pat.n + np.asarray(pat.cols),
+                           dtype=torch.long, device=vals.device)
+    return vals.new_zeros((B, pat.m * pat.n)).index_add_(1, flat, vals).reshape(
+        B, pat.m, pat.n)
+
+
 _NO_POS = np.zeros(0, dtype=np.int64)  # empty per-step-band position sentinel
 
 

@@ -1,7 +1,8 @@
 """Where the engine's step time goes on the GPU.
 
     python -m dragg_tpu_torch.profile_step [--homes 10000] [--steps 8]
-                                           [--solver ipm|reluqp]
+                                           [--solver ipm|reluqp|admm]
+                                           [--admm-backend auto|dense_inv|band]
                                            [--pack stress_dr_outage]
                                            [--communities 4]
 
@@ -13,15 +14,21 @@ host clock (synchronised, profiler off), and a third traced with
 ``torch.profiler``.  Each chunk starts a fresh solver carry, so with
 ``--steps`` equal to ``admm_refactor_every`` (8, the default) each timed
 chunk holds exactly one ReLU-QP rho-bank refresh, the main path's
-cadence (t = 0, 8 and 16 of the day).  ``--solver reluqp`` runs the fused
-window kernel (``tpu.iter_kernel = "pallas"``).  ``--pack`` runs a
+cadence (t = 0, 8 and 16 of the day), and the ADMM's factor refresh
+likewise.  ``--solver reluqp`` runs the fused window kernel
+(``tpu.iter_kernel = "pallas"``); ``--solver admm`` the ADMM on
+``--admm-backend`` (``tpu.admm_solve_backend``; "band" runs the band
+kernels).  ``--pack`` runs a
 scenario pack's mix and events (``tpu.fix_tou_peak`` on), ``--communities``
 a fleet of that many communities of ``--homes / communities`` homes, 24 h
 of weather apart (the fleet of ``chip_smoke.py`` phase 13).
 
 Prints one JSON object: seconds per step, device kernel time per step
 (total; the band kernels; the fused window; the rho-bank build, from its
-profiler range), kernel launches per step, the device's busy share of the
+profiler range; the ADMM's factorizations, from theirs, with their
+launches and count per step: under the dense inverse each is a band
+Cholesky and a banded forward solve against I, ``banded_explicit_inverse``),
+kernel launches per step, the device's busy share of the
 step, and the top kernels by device time.  The full table goes to
 ``chiprun_out/profile_step_<solver>.json``.
 """
@@ -49,7 +56,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="dragg_tpu_torch.profile_step")
     p.add_argument("--homes", type=int, default=10_000)
     p.add_argument("--steps", type=int, default=8)
-    p.add_argument("--solver", choices=("ipm", "reluqp"), default="ipm")
+    p.add_argument("--solver", choices=("ipm", "reluqp", "admm"), default="ipm")
+    p.add_argument("--admm-backend", choices=("auto", "dense_inv", "band"), default="auto")
     p.add_argument("--pack", default="")
     p.add_argument("--communities", type=int, default=1)
     args = p.parse_args(argv)
@@ -60,12 +68,14 @@ def main(argv=None) -> int:
 
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.config import mixed_community_config
+    from dragg_tpu_torch.ops.admm import FACTOR_RANGE
     from dragg_tpu_torch.ops.reluqp import BANK_BUILD_RANGE
 
     n, k, c = args.homes, args.steps, args.communities
     cfg = mixed_community_config(n // c, 24, "2015-01-02 00", iter_kernel="pallas",
                                  fix_tou_peak=bool(args.pack))
     cfg["home"]["hems"]["solver"] = args.solver
+    cfg["tpu"]["admm_solve_backend"] = args.admm_backend
     cfg["scenarios"]["pack"] = args.pack
     cfg["fleet"].update(communities=c, weather_offset_hours=24 if c > 1 else 0)
     with tempfile.TemporaryDirectory() as d:
@@ -84,12 +94,18 @@ def main(argv=None) -> int:
         state, out = eng.run_chunk(state, 2 * k, rps)
         torch.cuda.synchronize()
 
+    def launched(e) -> list:
+        return list(e.kernels) + [k for c in e.cpu_children for k in launched(c)]
+
+    factor_kernels = [k for e in prof.events() if e.name == FACTOR_RANGE for k in launched(e)]
+    n_factors = sum(e.name == FACTOR_RANGE for e in prof.events())
     kernels, bank_us = [], 0.0
     for evt in prof.key_averages():
-        if evt.key == BANK_BUILD_RANGE:
-            # The range's device span, not a kernel: the time of the
-            # kernels launched inside it.
-            bank_us = _device_us(evt, ("device_time_total", "cuda_time_total"))
+        if evt.key in (BANK_BUILD_RANGE, FACTOR_RANGE):
+            # A range's device span, not a kernel: the time of the kernels
+            # launched inside it.
+            if evt.key == BANK_BUILD_RANGE:
+                bank_us = _device_us(evt, ("device_time_total", "cuda_time_total"))
             continue
         us = _device_us(evt)
         if us > 0 and evt.device_type.name == "CUDA":
@@ -106,6 +122,10 @@ def main(argv=None) -> int:
         fused_window_ms_per_step=window_ms,
         fused_window_share=window_ms / total_ms if total_ms else 0.0,
         bank_build_ms_per_step=bank_us / k / 1e3 if bank_us else "not measured",
+        admm_backends=eng.solve_backends if args.solver == "admm" else None,
+        admm_factors_per_step=n_factors / k,
+        admm_factor_launches_per_step=len(factor_kernels) / k,
+        admm_factor_ms_per_step=sum(x.duration for x in factor_kernels) / k / 1e3,
         other_kernel_ms_per_step=total_ms - band_ms - window_ms,
         kernel_launches_per_step=sum(e[2] for e in kernels),
         device_busy_share=total_ms / 1e3 / wall,
@@ -115,7 +135,8 @@ def main(argv=None) -> int:
              for e in kernels[:15]],
     )
     os.makedirs("chiprun_out", exist_ok=True)
-    tag = args.solver + (f"_{args.pack}" if args.pack else "") + (f"_c{c}" if c > 1 else "")
+    tag = (args.solver + (f"_{args.admm_backend}" if args.solver == "admm" else "")
+           + (f"_{args.pack}" if args.pack else "") + (f"_c{c}" if c > 1 else ""))
     with open(os.path.join("chiprun_out", f"profile_step_{tag}.json"), "w") as f:
         json.dump(dict(result, all=[list(e) for e in kernels]), f, indent=1)
     print(json.dumps(result))

@@ -21,6 +21,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu.ops import banded as jb
 from dragg_tpu.ops import pallas_band as pb

@@ -16,6 +16,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu.aggregator import Aggregator as JaxAggregator
 from dragg_tpu_torch.aggregator import Aggregator, _HostSlot

@@ -8,6 +8,7 @@ Marked ``cuda``: they skip without a CUDA device; run them on the GPU with
 
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu_torch.ops import band_kernels as bk
 

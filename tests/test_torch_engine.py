@@ -12,6 +12,7 @@ solvers land ~1e-5 apart, well inside their 2e-4 stopping tolerance).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu import data as jd
 from dragg_tpu import engine as je
@@ -90,21 +91,25 @@ def test_restart_from_jax_state():
     ("telemetry", "per_home", True),
 ])
 def test_out_of_slice_settings_raise(section, key, value):
-    """The ADMM and cyclic reduction raise NotImplementedError; the
-    observatory (``telemetry.per_home``), once outside the port, builds
-    the JAX package's engine parameters."""
+    """Settings once outside the port (the ADMM, cyclic reduction, the
+    observatory's ``telemetry.per_home``) now build the JAX package's
+    engine parameters."""
     cfg = _config("auto")
     if isinstance(value, dict):
         cfg[section][key].update(value)
     else:
         cfg[section][key] = value
+    got, want = te.engine_params(cfg, 0), je.engine_params(cfg, 0)
     if key == "per_home":
-        got, want = te.engine_params(cfg, 0), je.engine_params(cfg, 0)
         assert (got.obs_per_home, got.obs_worst_k) == (want.obs_per_home, want.obs_worst_k)
         assert got.obs_per_home is True and got.obs_worst_k == 8
-        return
-    with pytest.raises(NotImplementedError):
-        te.engine_params(cfg, 0)
+    elif key == "band_kernel":
+        assert got.band_kernel == want.band_kernel == "cr"
+    else:
+        assert got.solver == want.solver == "admm"
+        for f in ("admm_iters", "admm_rho_update_every", "admm_matvec_dtype", "admm_refine",
+                  "admm_anderson", "admm_banded_factor", "admm_solve_backend"):
+            assert getattr(got, f) == getattr(want, f), f
 
 
 def test_scenario_home_types_raise():

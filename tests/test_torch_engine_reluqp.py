@@ -19,6 +19,8 @@ packages stop at different points inside that ball.
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu import data as jd
 from dragg_tpu import engine as je
@@ -155,7 +157,11 @@ def test_engine_params_read_as_jax():
 
 
 def test_admm_still_raises():
+    """Once a raise: the ADMM now builds the JAX engine's parameters."""
     cfg = _config()
     cfg["home"]["hems"]["solver"] = "admm"
-    with pytest.raises(NotImplementedError, match="home.hems.solver"):
-        te.engine_params(cfg, 0)
+    pt, pj = te.engine_params(cfg, 0), je.engine_params(cfg, 0)
+    assert pt.solver == pj.solver == "admm"
+    for f in ("admm_iters", "admm_eps", "admm_patience", "admm_refactor_every",
+              "admm_rho_update_every", "admm_refine", "admm_solve_backend", "precision"):
+        assert getattr(pt, f) == getattr(pj, f), f

@@ -4,6 +4,8 @@ CPU's sums do not depend on where a row lies), and ``compare_homes``
 finds first flips and bounds as its docstring says."""
 
 import numpy as np
+import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu_torch.aggregator import Aggregator
 from dragg_tpu_torch.config import pack_fleet_config

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu.ops import precision as jp
 from dragg_tpu_torch.ops import precision as tp

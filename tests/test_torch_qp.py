@@ -16,6 +16,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 sys.path.insert(0, "tests")
 

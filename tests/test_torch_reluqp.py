@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 from scipy.optimize import linprog
 
 from dragg_tpu.fixtures import assemble_community_qp

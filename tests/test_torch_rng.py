@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu_torch import rng
 

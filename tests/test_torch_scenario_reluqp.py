@@ -6,6 +6,9 @@ home-steps stop below the banked loop's 250-iteration cap, the rest in
 the exact tail (where the two packages' buckets part by up to 25
 iterations, and their homes agree within 4.7e-5 all the same)."""
 
+import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
+
 from test_torch_scenario_runs import check_event_run
 
 

@@ -29,6 +29,7 @@ import warnings
 
 import numpy as np
 import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu_torch import engine as te
 from dragg_tpu_torch.interop import engine_state_from_numpy

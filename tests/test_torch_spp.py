@@ -10,6 +10,8 @@ from datetime import datetime
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu import data as jd
 from dragg_tpu_torch import data as td

@@ -16,6 +16,8 @@ import os
 import time
 
 import pytest
+import torch
+torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share the cores
 
 from dragg_tpu import telemetry as jtel
 from dragg_tpu_torch import telemetry as ttel
