@@ -190,6 +190,27 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    phase 4's checks against a card run (flags equal, series within
    1e-2); under ``probe_down:5`` ``--platform cuda`` does not complete
    and runs no CPU attempt;
+19. sharding over torch.distributed (``dragg_tpu_torch.parallel``), the
+   10,000-home community of the mix, H = 24, hourly chunks: (a) a world
+   of one through ``python -m dragg_tpu_torch run --device cuda`` (the
+   CLI's ``main`` in-process) with ``$DRAGG_DISTRIBUTED=1`` and the three
+   ``$DRAGG_*`` variables, 4 steps through the IPM's split route: its
+   results.json bit-equal to an unsharded run's, the same band launches,
+   its checkpoints the shard file ``state.proc00000-of-00001.npz``; then
+   two ranks of one gloo group sharing the card (``cuda:0`` each), two
+   processes of ``RANK_PROGRAM`` with a timeout, which run every job below
+   in turn: (b) the same 4 steps, rank 0 alone writing results.json,
+   within 1e-2 of leg a, solve rate ≥ 0.99, both ranks reporting the
+   same iterations and running the same phase-1 iterations (each rank's
+   own count, before any reduction), each rank's band kernels bit-equal
+   to their plain versions at its block shapes (B = 2,000 and 500), its launches and s
+   a step; (c) 2,500 homes × 2 chunks stopped after 1 and resumed,
+   bit-equal to the uninterrupted two-rank run, each rank's directory
+   holding its own shard file alone and rank 1 no progress.json; (d)
+   1,000 homes × 2 steps of ReLU-QP (``iter_kernel = "pallas"``,
+   resolved to ``"lax"``) and of the ADMM, both ranks reading the same
+   check windows (each rank's own count) and stopping at the same
+   windows with the same factorizations;
 
 then prints the phases line (each phase's seconds), the kernels JSON
 line, the card line and, last, the result line.  Per-shape details go to
@@ -3069,6 +3090,321 @@ def supervised_phase(outputs_dir: str, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------- sharding (phase 19)
+SHARD_STEPS = 4            # hourly chunks of legs a and b (10,000 homes)
+SHARD_RESUME_HOMES = 2_500
+SHARD_RESUME_STEPS = 2     # hourly chunks of leg c, stopped after 1
+SHARD_SHORT_HOMES = 1_000
+SHARD_SHORT_STEPS = 2      # leg d: ReLU-QP and the ADMM
+SHARD_ATOL = 1e-2          # two ranks against one (tests/test_parallel.py:83-91)
+SHARD_MIN_RATE = 0.99
+SHARD_TIMEOUT_S = 600
+# One rank of a two-rank run sharing the card: joins the group from the
+# $DRAGG_* variables, then runs each job of a JSON list through
+# Aggregator(...).run() on cuda:0 in its own outputs directory, recording
+# its launches (counted from zero just before each run), seconds, solver
+# iterations (the world's, reduced) and factorizations, its own check
+# windows and IPM phase-1 iterations (this process's, before any
+# reduction), resolved routes and files; after a job
+# with "kernels", holds the band kernels against their plain versions at
+# its block shapes (launches made after the run's count was read).  The
+# World's collectives are timed (seconds inside them, the wait for the
+# other rank included; the host pipeline's thread too) and counted.
+RANK_PROGRAM = """
+import json, os, sys, time
+import torch
+from dragg_tpu_torch import parallel
+from dragg_tpu_torch.parallel.world import World
+world = parallel.init_from_env()
+waits = [0.0, 0]
+def timed(fn):
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            waits[0] += time.perf_counter() - t0
+            waits[1] += 1
+    return wrapper
+for name in ("all_reduce", "all_gather", "gather", "broadcast", "barrier"):
+    setattr(World, name, timed(getattr(World, name)))
+from dragg_tpu_torch.aggregator import Aggregator
+from dragg_tpu_torch.bench_band import band_fixture
+from dragg_tpu_torch.ops import admm, band_kernels as bk, ipm, iter_kernels as ik
+from dragg_tpu_torch.ops.ipm import band_plan
+jobs, out_path = json.load(open(sys.argv[1])), sys.argv[2]
+records = []
+for job in jobs:
+    out = os.path.join(job["outputs"], f"rank{world.rank}")
+    agg = Aggregator(job["config"], outputs_dir=out, device="cuda:0")
+    agg.stop_after_chunks = job.get("stop")
+    bk.reset_launches(); ik.reset_launches(); admm.reset_factorizations()
+    ipm.reset_phase1_iterations()
+    waits[:] = [0.0, 0]
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    agg.run()
+    torch.cuda.synchronize(); seconds = time.perf_counter() - t0
+    eng = agg.engine
+    rec = dict(job=job["name"], rank=world.rank, size=world.size, device=str(agg.device),
+               seconds=seconds, s_per_step=agg._phase_times["device_chunks"] / max(1, agg.timestep),
+               launches={**bk.LAUNCHES, **ik.LAUNCHES}, factorizations=dict(admm.FACTORIZATIONS),
+               check_windows=admm.CHECK_WINDOWS["windows"],
+               phase1_iterations=ipm.PHASE1_ITERATIONS["iterations"],
+               solver_iterations=agg._solve_iters, timestep=agg.timestep,
+               resumed_from=agg.resumed_from, iter_kernel=eng.iter_kernel,
+               engine=type(eng).__name__, n_homes=eng.n_homes, n_local=eng.n_local,
+               run_dir=agg.run_dir, collective_s=waits[0], collectives=waits[1],
+               files=sorted(f for _, _, fs in os.walk(out) for f in fs))
+    if job.get("kernels"):
+        shapes, ok = [], True
+        for i, c in enumerate(eng._buckets):
+            m, bw, B = c.lay.m_eq, band_plan(c.static.pattern).bw, c.n
+            St, r = band_fixture(m, bw, B, seed=1000 * world.rank + i)
+            L, Lp = bk.banded_cholesky_t(St, bw), bk.cholesky_t_plain(St, bw)
+            ok &= torch.equal(L, Lp)
+            for refine in (0, 1):
+                ok &= torch.equal(bk.refined_banded_solve_t(L, St, r, bw, refine),
+                                  bk.refined_solve_t_plain(Lp, St, r, bw, refine))
+                Lf, xf = bk.factor_refined_solve_t(St, r, bw, refine)
+                ok &= torch.equal(Lf, Lp) and torch.equal(
+                    xf, bk.refined_solve_t_plain(Lp, St, r, bw, refine))
+            shapes.append([c.name, m, bw, B])
+        torch.cuda.synchronize()
+        rec.update(kernel_shapes=shapes, kernels_bit_equal=bool(ok))
+    records.append(rec)
+    del agg, eng
+    torch.cuda.empty_cache()
+json.dump(records, open(out_path, "w"))
+parallel.shutdown()
+"""
+
+
+def rank_pair(outputs_dir: str, jobs: list) -> list:
+    """Two ranks of one gloo group on the one card (``cuda:0`` each), as
+    two processes of :data:`RANK_PROGRAM`, each with a timeout: their
+    records, one list a rank.  A rank that fails fails the phase."""
+    import socket
+
+    os.makedirs(outputs_dir, exist_ok=True)
+    spec = os.path.join(outputs_dir, "jobs.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, DRAGG_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   DRAGG_NUM_PROCESSES="2", DRAGG_PROCESS_ID=str(r),
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_PROGRAM, spec, os.path.join(outputs_dir, f"rank{r}.json")],
+            env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=SHARD_TIMEOUT_S)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (rc, out) in enumerate(outs):
+        check(rc == 0, f"sharded rank {r} exited {rc}:\n{out[-4000:]}")
+    records = []
+    for r in range(2):
+        with open(os.path.join(outputs_dir, f"rank{r}.json")) as f:
+            records.append({rec["job"]: rec for rec in json.load(f)})
+    return records
+
+
+def shard_cfg(n_homes: int, steps: int, solver: str = "ipm", **tpu) -> dict:
+    cfg = community_config(n_homes, MAIN_HORIZON, end_after(steps), bucketed="auto", **tpu)
+    cfg["home"]["hems"]["solver"] = solver
+    cfg["simulation"]["checkpoint_interval"] = "hourly"
+    return cfg
+
+
+def sharding_phase(outputs_dir: str) -> dict:
+    """Phase 19: sharding over torch.distributed (module docstring)."""
+    import numpy as np
+
+    from dragg_tpu_torch.__main__ import main as cli
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.parallel import current_world
+
+    out = {}
+    cfg = shard_cfg(N_HOMES, SHARD_STEPS)
+
+    # a. A world of one through the run entry, against an unsharded run.
+    ref = card_run(os.path.join(outputs_dir, "shard-one-ref"), cfg)
+    path = write_config(os.path.join(outputs_dir, "shard-one.toml"), cfg)
+    seen = []
+    clear = Aggregator.clear_checkpoint
+
+    def recording_clear(self):
+        # The files of the last checkpoint, before the finished run drops it.
+        d = self._latest_checkpoint_dir()
+        seen.extend(sorted(os.listdir(d)) if d else [])
+        clear(self)
+
+    env = {"DRAGG_DISTRIBUTED": "1", "DRAGG_NUM_PROCESSES": "1", "DRAGG_PROCESS_ID": "0"}
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        env["DRAGG_COORDINATOR_ADDRESS"] = f"127.0.0.1:{s.getsockname()[1]}"
+    os.environ.update(env)
+    Aggregator.clear_checkpoint = recording_clear
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli(["run", "--config", path, "--outputs-dir",
+                  os.path.join(outputs_dir, "shard-one"), "--device", "cuda"])
+    finally:
+        Aggregator.clear_checkpoint = clear
+        for k in env:
+            os.environ.pop(k)
+    one_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rc == 0 and current_world().size == 1 and current_world().group is None,
+          f"run entry, world of one: rc {rc}, world {current_world()}")
+    with open(os.path.join(outputs_dir, "shard-one", os.path.relpath(
+            ref["run_dir"], os.path.join(outputs_dir, "shard-one-ref")),
+            "baseline", "results.json")) as f:
+        one = json.load(f)
+    same_results(one, ref["results"], "world of one vs unsharded run")
+    check(launches == ref["launches"], f"world of one launched {launches}, unsharded "
+                                       f"{ref['launches']}")
+    check("state.proc00000-of-00001.npz" in seen and "state.npz" not in seen,
+          f"world of one: its last checkpoint held {seen}")
+    step_s = lambda res: res["Summary"]["phase_times"]["device_chunks"] / SHARD_STEPS  # noqa: E731
+    out["world_of_one"] = dict(homes=N_HOMES, steps=SHARD_STEPS, seconds=one_s,
+                               s_per_step=step_s(one),
+                               unsharded_s_per_step=step_s(ref["results"]),
+                               launches=launches, checkpoint_files=seen,
+                               bit_equal_to_unsharded=True)
+    log("sharding, world of one: " + json.dumps(out["world_of_one"]))
+
+    # b-d. Two ranks sharing the card, one process pair for every job.
+    resume_cfg = shard_cfg(SHARD_RESUME_HOMES, SHARD_RESUME_STEPS)
+    jobs = [
+        dict(name="b", config=cfg, outputs=os.path.join(outputs_dir, "shard-b"), kernels=True),
+        dict(name="c_full", config=resume_cfg, outputs=os.path.join(outputs_dir, "shard-c-full")),
+        dict(name="c_stop", config=resume_cfg, outputs=os.path.join(outputs_dir, "shard-c"),
+             stop=1),
+        dict(name="c_resume", config={**resume_cfg, "simulation": {
+            **resume_cfg["simulation"], "resume": True}},
+             outputs=os.path.join(outputs_dir, "shard-c")),
+        dict(name="d_reluqp", config=shard_cfg(SHARD_SHORT_HOMES, SHARD_SHORT_STEPS, "reluqp",
+                                               iter_kernel="pallas"),
+             outputs=os.path.join(outputs_dir, "shard-d-reluqp")),
+        dict(name="d_admm", config=shard_cfg(SHARD_SHORT_HOMES, SHARD_SHORT_STEPS, "admm"),
+             outputs=os.path.join(outputs_dir, "shard-d-admm")),
+    ]
+    t0 = time.perf_counter()
+    ranks = rank_pair(os.path.join(outputs_dir, "shard-ranks"), jobs)
+    pair_s = time.perf_counter() - t0
+
+    def results_of(rec) -> dict | None:
+        p = os.path.join(rec["run_dir"], "baseline", "results.json")
+        if not os.path.isfile(p):
+            return None
+        with open(p) as f:
+            return json.load(f)
+
+    b0, b1 = ranks[0]["b"], ranks[1]["b"]
+    check(b0["engine"] == b1["engine"] == "ShardedEngine" and b0["device"] == "cuda:0"
+          and b0["n_local"] == b1["n_local"] == N_HOMES // 2,
+          f"two ranks: {[(r['engine'], r['device'], r['n_local']) for r in (b0, b1)]}")
+    check(results_of(b1) is None, "rank 1 wrote results.json")
+    two = results_of(b0)
+    check(b0["solver_iterations"] == b1["solver_iterations"],
+          f"ranks report other iterations: {b0['solver_iterations']}, {b1['solver_iterations']}")
+    # Each rank's own count, before any reduction: the ranks ran the same
+    # phase-1 iterations.
+    check(b0["phase1_iterations"] == b1["phase1_iterations"] > 0,
+          f"ranks ran other phase-1 iterations: {b0['phase1_iterations']}, "
+          f"{b1['phase1_iterations']}")
+    summary, solved = check_results(two, SHARD_STEPS)
+    check(summary["solver_iterations"] == b0["solver_iterations"], "Summary's iterations")
+    worst = 0.0
+    for name, series in ref["results"].items():
+        if name == "Summary":
+            continue
+        for key, v in series.items():
+            if isinstance(v, list):
+                worst = max(worst, float(np.max(np.abs(np.asarray(two[name][key])
+                                                       - np.asarray(v)), initial=0.0)))
+    rate = float(np.mean(solved))
+    check(worst <= SHARD_ATOL, f"two ranks: series {worst} from the world of one")
+    check(rate >= SHARD_MIN_RATE, f"two ranks: solve rate {rate}")
+    for rec in (b0, b1):
+        ln = rec["launches"]
+        check(ln["banded_cholesky_t"] > 0 and ln["refined_banded_solve_t"] > 0
+              and ln["factor_refined_solve_t"] == 0 and ln[WINDOW] == 0,
+              f"rank {rec['rank']} launched {ln}")
+        check(rec["kernels_bit_equal"], f"rank {rec['rank']}: band kernels differ from "
+                                        f"their plain versions at {rec['kernel_shapes']}")
+    out["two_ranks"] = dict(
+        homes=N_HOMES, steps=SHARD_STEPS, solve_rate=rate, max_abs_difference_to_one=worst,
+        iterations=b0["solver_iterations"], pair_s=pair_s,
+        ranks=[{k: rec[k] for k in ("rank", "launches", "s_per_step", "seconds", "n_local",
+                                    "phase1_iterations",
+                                    "collective_s", "collectives", "kernel_shapes",
+                                    "kernels_bit_equal")} for rec in (b0, b1)])
+    log("sharding, two ranks on one card: " + json.dumps(out["two_ranks"]))
+
+    # c. Stopped after one chunk and resumed: bit-equal, each rank's own shard.
+    full, resumed = results_of(ranks[0]["c_full"]), results_of(ranks[0]["c_resume"])
+    same_results(resumed, full, "two ranks resumed vs uninterrupted")
+    for r in range(2):
+        stop, res = ranks[r]["c_stop"], ranks[r]["c_resume"]
+        mine = f"state.proc{r:05d}-of-00002.npz"
+        other = f"state.proc{1 - r:05d}-of-00002.npz"
+        check(stop["timestep"] == 1 and mine in stop["files"] and other not in stop["files"],
+              f"rank {r}'s checkpoint files: {stop['files']}")
+        check(("progress.json" in stop["files"]) == (r == 0),
+              f"rank {r}'s progress.json: {stop['files']}")
+        check(res["resumed_from"] is not None and res["resumed_from"].endswith("ckpt_t00000001"),
+              f"rank {r} resumed from {res['resumed_from']}")
+    out["resume"] = dict(homes=SHARD_RESUME_HOMES, steps=SHARD_RESUME_STEPS, bit_equal=True,
+                         files={r: ranks[r]["c_stop"]["files"] for r in range(2)})
+    log("sharding, two-rank resume: " + json.dumps(out["resume"]))
+
+    # d. ReLU-QP and the ADMM: the same stop windows and factorizations.
+    short = {}
+    for job in ("d_reluqp", "d_admm"):
+        r0, r1 = ranks[0][job], ranks[1][job]
+        check(r0["solver_iterations"] == r1["solver_iterations"],
+              f"{job}: ranks stopped at other windows: {r0['solver_iterations']}, "
+              f"{r1['solver_iterations']}")
+        check(r0["factorizations"] == r1["factorizations"],
+              f"{job}: factorizations {r0['factorizations']}, {r1['factorizations']}")
+        # Each rank's own count of check windows read, before any reduction.
+        check(r0["check_windows"] == r1["check_windows"] > 0,
+              f"{job}: ranks read other check windows: {r0['check_windows']}, "
+              f"{r1['check_windows']}")
+        check(r0["launches"][WINDOW] == r1["launches"][WINDOW] == 0,
+              f"{job}: the window kernel ran on two ranks: {r0['launches']}")
+        res = results_of(r0)
+        summary, solved = check_results(res, SHARD_SHORT_STEPS, SHARD_SHORT_HOMES)
+        short[job] = dict(iter_kernel=r0["iter_kernel"], iterations=r0["solver_iterations"],
+                          factorizations=r0["factorizations"],
+                          check_windows=[r0["check_windows"], r1["check_windows"]],
+                          solve_rate=float(np.mean(solved)),
+                          s_per_step=[r0["s_per_step"], r1["s_per_step"]],
+                          launches=[r0["launches"], r1["launches"]])
+    check(short["d_reluqp"]["iter_kernel"] == "lax",
+          f"iter_kernel 'pallas' resolved to {short['d_reluqp']['iter_kernel']} on two ranks")
+    out["short"] = short
+    log("sharding, ReLU-QP and ADMM on two ranks: " + json.dumps(short))
+    out["launches_per_rank"] = [b0["launches"], b1["launches"]]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3162,6 +3498,7 @@ def main() -> int:
                      grid_shapes)
         readers = timed("17_readers", readers_phase, d)
         supervised = timed("18_supervised", supervised_phase, d, card)
+        sharding = timed("19_sharding", sharding_phase, d)
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -3256,6 +3593,9 @@ def main() -> int:
                                   for h in SWEEP_HORIZONS}),
             launches_sweep={str(r["horizon"]): r["launches"][name] for r in readers["runs"]},
             launches_supervised=supervised["healthy"]["launches"][name],
+            # Phase 19: each rank of the two sharing the card (leg b,
+            # 10,000 homes × SHARD_STEPS, split route).
+            launches_sharded=[ln[name] for ln in sharding["launches_per_rank"]],
         ))
     rows = win["per_shape"]
     t_bytes = sum(r["bound_bytes_ms"] for r in rows)
@@ -3280,6 +3620,8 @@ def main() -> int:
         grid_block=dict(grid_block(win_grid["per_shape"]), max_abs_err=win_grid["max_abs_err"]),
         launches_sweep={str(r["horizon"]): r["launches"][WINDOW] for r in readers["runs"]},
         launches_supervised=supervised["healthy"]["launches"][WINDOW],
+        # Phase 19, leg d: ReLU-QP on two ranks routes the window to lax.
+        launches_sharded=[ln[WINDOW] for ln in sharding["short"]["d_reluqp"]["launches"]],
     ))
     phases["whole_script"] = round(time.perf_counter() - t_start, 1)
     log(f"whole script: {phases['whole_script']:.1f} s")
@@ -3291,7 +3633,8 @@ def main() -> int:
                    "band_kernel_xla": xla, "rl": rl, "kernels_grid": kern_grid,
                    "window_grid": win_grid, "fleet": fleet, "fleet_rl": fleet_rl,
                    "telemetry": tel, "admm": admm, "readers": readers,
-                   "supervised": supervised, "phases": phases}, f, indent=1)
+                   "supervised": supervised, "sharding": sharding, "phases": phases},
+                  f, indent=1)
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -15,7 +15,13 @@ community ``run_rl_simplified``) on the CUDA card by default.  With
 simulation in a supervised child (:mod:`dragg_tpu_torch.resilience`):
 a deadline, heartbeat-stall detection, and on a card lost mid-run
 (``resilience.degrade_to_cpu``) the same run resumed on the CPU from its
-latest checkpoint; it prints one provenance JSON line.  ``reformat``,
+latest checkpoint; it prints one provenance JSON line.  With
+``$DRAGG_DISTRIBUTED=1`` ``run`` is one rank of a sharded run
+(:mod:`dragg_tpu_torch.parallel`): it joins a gloo group at
+``tcp://$DRAGG_COORDINATOR_ADDRESS`` of ``$DRAGG_NUM_PROCESSES`` ranks as
+``$DRAGG_PROCESS_ID`` (or torchrun's ``env://`` without the address), and
+runs on its card, ``cuda:$LOCAL_RANK``, unless ``--device`` says
+otherwise.  ``reformat``,
 ``sweep`` and ``dashboard`` read run trees (:mod:`~dragg_tpu_torch.reformat`,
 :mod:`~dragg_tpu_torch.dashboard`); their figures need matplotlib.
 ``doctor``, ``serve``, ``shard`` and ``bench`` are not ported.
@@ -175,14 +181,33 @@ def main(argv=None) -> int:
                          "with --supervised use --platform")
         if not args.supervised and (args.platform, args.deadline) != (None, None):
             parser.error("run: --platform and --deadline need --supervised")
+        distributed = os.environ.get("DRAGG_DISTRIBUTED") == "1"
+        if args.supervised and distributed:
+            parser.error("run: --supervised runs one process; a sharded run "
+                         "($DRAGG_DISTRIBUTED=1) is not supervised")
     if args.cmd == "run" and args.supervised:
         return run_supervised_cli(args)
     if args.cmd == "run":
+        device = args.device or "cuda"
+        if distributed:
+            # One rank of a sharded run: every rank runs this command.
+            from dragg_tpu_torch.parallel import world
+
+            missing = world.missing_env()
+            if missing:
+                print(world.missing_env_message(missing), file=sys.stderr)
+                return 2
+            if world.init_from_env().size > 1 and device == "cuda":
+                device = None  # the rank's card, cuda:$LOCAL_RANK
         from dragg_tpu_torch.aggregator import Aggregator
 
-        agg = Aggregator(config=args.config, data_dir=args.data_dir,
-                         outputs_dir=args.outputs_dir, device=args.device or "cuda")
-        agg.run()
+        try:
+            agg = Aggregator(config=args.config, data_dir=args.data_dir,
+                             outputs_dir=args.outputs_dir, device=device)
+            agg.run()
+        finally:
+            if distributed:
+                world.shutdown()
         print(agg.run_dir)
         return 0
     if args.cmd == "reformat":

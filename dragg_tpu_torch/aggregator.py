@@ -21,8 +21,16 @@ its own seed and seeing its own weather offset, in one engine; the home
 list and results.json are community-major.  A ``[scenarios]`` pack
 expands into the home mix and the event timeline before anything reads
 them; a fleet's RL cases train one policy (or one per community) on all
-C communities (:mod:`dragg_tpu_torch.rl.fleet`).  The sharded mesh
-raises NotImplementedError naming its config key.
+C communities (:mod:`dragg_tpu_torch.rl.fleet`).
+
+Sharding (``tpu.sharded``, :mod:`dragg_tpu_torch.parallel`): in a world of
+several ranks (one process per card, ``$DRAGG_DISTRIBUTED=1`` or
+``torchrun``) ``"auto"`` and ``true`` run a ``ShardedEngine`` on the
+rank's block of homes; every rank drives the same chunk loop, rank 0
+gathers the per-home rows and alone writes results.json and the
+telemetry, and checkpoints are per-rank shard files published by the JAX
+package's barrier protocol.  ``true`` without a group runs the world of
+one, as the JAX package does on a host with one device.
 
 Telemetry (``[telemetry]``, on by default as in the JAX package): the run
 opens the bus (:mod:`dragg_tpu_torch.telemetry`) at
@@ -54,8 +62,11 @@ from dragg_tpu_torch.checkpoint import (
     latest_checkpoint_dir,
     load_progress,
     load_pytree,
+    load_pytree_local,
     save_checkpoint_dir,
     save_progress,
+    save_pytree_local,
+    shard_file_name,
     tree_flatten,
     tree_unflatten,
 )
@@ -79,6 +90,9 @@ from dragg_tpu_torch.homes import (
 )
 from dragg_tpu_torch.layout import date_folder_name, run_dir_name
 from dragg_tpu_torch.logger import Logger
+from dragg_tpu_torch.parallel.mesh import make_sharded_engine, rank_device
+from dragg_tpu_torch.parallel.world import current_world
+from dragg_tpu_torch.resilience.devices import device_count
 from dragg_tpu_torch.resilience.faults import fault_hook
 from dragg_tpu_torch.resilience.heartbeat import beat
 from dragg_tpu_torch.scenarios import apply_scenarios, describe_timeline, timeline_digest
@@ -130,12 +144,16 @@ class Aggregator:
         Root of the run-directory tree.
     device : str | torch.device | None
         Where the engine runs; None means the CUDA card (and raises when
-        there is none — pass ``device="cpu"`` explicitly).
+        there is none — pass ``device="cpu"`` explicitly); in a world of
+        several ranks, the rank's card, ``cuda:{local_rank}``.
     """
 
     def __init__(self, config=None, data_dir=None, outputs_dir="outputs",
                  device=None):
-        self.device = resolve_device(device)
+        # The process's ranks (parallel.init_from_env); the world of one
+        # without a group.
+        self.world = current_world()
+        self.device = resolve_device(rank_device(self.world, device))
         self.log = Logger("aggregator")
         resolved = data_dir if data_dir is not None else os.path.expanduser(
             os.environ.get("DATA_DIR", "data"))
@@ -150,8 +168,6 @@ class Aggregator:
         if sharded not in ("auto", True, False):
             raise ValueError(
                 f"tpu.sharded must be 'auto', true, or false, got {sharded!r}")
-        if sharded is True:
-            raise NotImplementedError("tpu.sharded: the sharded mesh is not ported yet")
         # [fleet]: C communities in one engine; community.total_number_homes
         # stays per community.  community_base is the global index of the
         # first: it shifts the seeds, the names and the weather.
@@ -267,9 +283,13 @@ class Aggregator:
         self.write_home_configs()
 
     def write_home_configs(self) -> None:
-        """Persist the population (dragg/aggregator.py:846-854)."""
-        with open(self._homes_cache_file(), "w") as f:
+        """Persist the population (dragg/aggregator.py:846-854), atomically:
+        every rank of a sharded run writes the same file."""
+        path = self._homes_cache_file()
+        tmp = f"{path}.tmp{self.world.rank}"
+        with open(tmp, "w") as f:
             json.dump(self.all_homes, f, indent=4)
+        os.replace(tmp, path)
 
     def reset_seed(self, new_seed: int) -> None:
         """Reset the population seed (dragg/aggregator.py:255-261); takes
@@ -284,8 +304,22 @@ class Aggregator:
         # the outputs back to the community-major all_homes order.
         batch, fleet = build_fleet_batch(self.all_homes, self.config, horizon,
                                          self.dt, int(hems["sub_subhourly_steps"]))
-        self.engine = make_engine(batch, self.env, self.config, self.start_index,
-                                  device=self.device, fleet=fleet, data_dir=self.data_dir)
+        # Several ranks shard the home axis ("auto"); true/false force it.
+        # Each rank builds the whole padded batch and keeps its block.
+        sharded = self.config.get("tpu", {}).get("sharded", "auto")
+        if sharded == "auto" and device_count() > 1 or sharded is True:
+            self.engine = make_sharded_engine(
+                batch, self.env, self.config, self.start_index, world=self.world,
+                device=self.device, fleet=fleet, data_dir=self.data_dir)
+            self.log.logger.info(
+                f"sharded engine: {self.world.size} ranks on axis "
+                f"{self.engine.axis_name!r} (rank {self.world.rank}, "
+                f"{self.engine.n_local} slots here), {self.engine.n_homes} home "
+                f"slots ({self.engine.true_n_homes} real)")
+        else:
+            self.engine = make_engine(batch, self.env, self.config, self.start_index,
+                                      device=self.device, fleet=fleet,
+                                      data_dir=self.data_dir)
         if fleet is not None:
             self.log.logger.info(
                 f"fleet engine: {fleet.n_communities} communities × "
@@ -361,22 +395,31 @@ class Aggregator:
         ``device_s`` (the caller's seconds driving the chunk) feeds the
         step-latency telemetry (``device_observed``: a span already
         observed it).  The solver telemetry and the observatory ride the
-        same host copy as the series: StepOutputs carries them."""
+        same host copy as the series: StepOutputs carries them.
+
+        A sharded engine's per-home rows are its rank's block: they are
+        gathered to rank 0 (``engine.gather_homes``), which alone collects
+        the series, logs the failed homes and emits; every rank keeps the
+        totals and the setpoint tracker."""
         # Per-home columns in all_homes order (a fleet's batch is type-major);
         # the observatory's leaves are per bucket, not per home.
-        cols = self.engine.real_home_cols
-        host = {f: a[:, cols] if a.ndim == 2 and f not in OBS_FIELDS else a
-                for f, a in outs._asdict().items()}
-        n_steps = host["p_grid"].shape[0]
-        for out_key, field in _SERIES_KEYS.items():
-            self.collector.add_chunk(out_key, host[field])
+        host = outs._asdict()
+        per_home = {f: a for f, a in host.items() if a.ndim == 2 and f not in OBS_FIELDS}
+        whole = self.engine.gather_homes(per_home)
+        writer = whole is not None
+        if writer:
+            cols = self.engine.real_home_cols
+            host.update({f: a[:, cols] for f, a in whole.items()})
+            for out_key, field in _SERIES_KEYS.items():
+                self.collector.add_chunk(out_key, host[field])
+        n_steps = host["agg_load"].shape[0]
         agg_loads = host["agg_load"]
         self.baseline_agg_load_list.extend(float(v) for v in agg_loads)
         self._solve_iters.extend(int(v) for v in host["admm_iters"])
         self.bank_fallback_total += float(np.sum(host["bank_fallback_count"]))
         # $VERBOSE: one solver line a chunk, the reference's per-solve
         # verbosity toggle (dragg/mpc_calc.py:81-86) batched per chunk.
-        if os.environ.get("VERBOSE"):
+        if os.environ.get("VERBOSE") and writer:
             rate = float(host["correct_solve"].mean())
             self.log.logger.progress(
                 f"chunk t={self.timestep}..{self.timestep + n_steps}: "
@@ -410,12 +453,13 @@ class Aggregator:
             if n_repair_failed:
                 telemetry.inc("engine.repair_failed", n_repair_failed)
             self._emit_observatory(host, n_steps)
-        if n_repair_failed > 0:
+        if n_repair_failed > 0 and writer:
             self.log.logger.progress(
                 f"chunk t={self.timestep}..{self.timestep + n_steps}: "
                 f"{int(n_repair_failed)} integer pins left the comfort band "
                 f"(homes kept the relaxed fractional action)")
-        self._log_home_failures(host["correct_solve"])
+        if writer:
+            self._log_home_failures(host["correct_solve"])
         # Ordering parity: the reference increments the timestep before
         # gen_setpoint, and the setpoint computed after step t is recorded
         # at step t+1 (dragg/aggregator.py:671-673,726,755).
@@ -612,13 +656,65 @@ class Aggregator:
         here: one versioned directory (state.npz, collected.json,
         progress.json, and a JSON file for each ``extra_json`` entry)
         published through ``LATEST`` (``checkpoint.save_checkpoint_dir``).
-        results.json stays a user-facing output; a resume never reads it."""
+        results.json stays a user-facing output; a resume never reads it.
+        A process of a distributed run writes its rank's shard file
+        instead (:meth:`_save_checkpoint_multiprocess`)."""
+        if self.world.distributed:
+            self._save_checkpoint_multiprocess(state, extra_json)
+            return
         files = {"collected.json": lambda path: self.collector.write_json(
             path, self._results_plan(None))}
         for name, obj in (extra_json or {}).items():
             files[name] = lambda path, obj=obj: save_progress(path, obj)
         save_checkpoint_dir(self._checkpoint_root(), self.timestep, state,
                             self._progress_dict(), files=files)
+
+    def _save_checkpoint_multiprocess(self, state, extra_json: dict | None = None) -> None:
+        """The JAX package's multi-process protocol, for ranks that may not
+        share a disk: (1) each rank writes ``state.proc<r>-of-<W>.npz``, its
+        own blocks (``checkpoint.save_pytree_local``), and rank 0 the host
+        bookkeeping and extras; (2) the ranks' write verdicts are
+        all-gathered, and on any failure no rank publishes (the previous
+        checkpoint stays authoritative); (3) a barrier, then every rank
+        replaces its ``LATEST`` (identical bytes); (4) a barrier, then the
+        superseded checkpoints are pruned.  A crash between (2) and (3)
+        tears ``LATEST`` across ranks; :meth:`_try_resume_multiprocess`
+        catches that."""
+        w = self.world
+        root = self._checkpoint_root()
+        name = f"ckpt_t{self.timestep:08d}"
+        final = os.path.join(root, name)
+        ok = True
+        try:
+            os.makedirs(final, exist_ok=True)
+            save_pytree_local(os.path.join(final, shard_file_name(w.rank, w.size)),
+                              state, self.timestep, w.rank)
+            if w.rank == 0:
+                self.collector.write_json(os.path.join(final, "collected.json"),
+                                          self._results_plan(None))
+                for fname, obj in (extra_json or {}).items():
+                    save_progress(os.path.join(final, fname), obj)
+                save_progress(os.path.join(final, "progress.json"), self._progress_dict())
+        except Exception:
+            self.log.logger.exception(
+                f"checkpoint write failed on process {w.rank}; skipping publish "
+                f"of {name} (previous checkpoint remains authoritative)")
+            ok = False
+        if not w.all(ok, host=True):
+            if ok:
+                self.log.logger.warning(
+                    f"checkpoint {name} aborted: another process failed its "
+                    f"write; no LATEST update")
+            return
+        w.barrier()
+        latest_tmp = os.path.join(root, f"LATEST.tmp{w.rank}")
+        with open(latest_tmp, "w") as f:
+            f.write(name)
+        os.replace(latest_tmp, os.path.join(root, "LATEST"))
+        w.barrier()
+        for entry in os.listdir(root):
+            if entry.startswith("ckpt_") and entry != name:
+                shutil.rmtree(os.path.join(root, entry), ignore_errors=True)
 
     def _progress_dict(self) -> dict:
         return {
@@ -651,8 +747,9 @@ class Aggregator:
         the state and a step mean, so a config change between runs starts
         afresh instead of failing later in a shape check or running on.
         ``rl_fleet`` is what sizes a fleet RL run's carries
-        (:meth:`_rl_fleet_shape`); several processes are not in this
-        package, so ``process_count`` is 1.  A single community's RL case
+        (:meth:`_rl_fleet_shape`); ``process_count`` is the world's ranks
+        and ``n_home_slots`` its padded slots, so a checkpoint of another
+        world size starts afresh.  A single community's RL case
         adds ``rl``, what sizes its agent's and environment's carries (the
         core, its critic count or width, the setpoint window), a key the
         JAX package does not write: a config change there starts afresh
@@ -673,7 +770,7 @@ class Aggregator:
             "state_rev": 2,
             "events": timeline_digest(eng.events) if eng is not None else None,
             "rl_fleet": self._rl_fleet_shape(),
-            "process_count": 1,
+            "process_count": self.world.size,
         }
         if self.case == "rl_agg" and self.n_communities == 1:
             p = self.config["rl"]["parameters"]
@@ -707,10 +804,14 @@ class Aggregator:
     def try_resume(self, template_state):
         """(state, t) from the latest complete checkpoint when
         ``simulation.resume`` is on and one exists for this run shape, else
-        (template_state, 0).  Sets ``resumed_from`` to the directory."""
+        (template_state, 0).  Sets ``resumed_from`` to the directory.  A
+        process of a distributed run decides with the other ranks
+        (:meth:`_try_resume_multiprocess`)."""
         self.resumed_from = None
         if not self.config["simulation"].get("resume", False):
             return template_state, 0
+        if self.world.distributed:
+            return self._try_resume_multiprocess(template_state)
         d = self._latest_checkpoint_dir()
         if d is None:
             return template_state, 0
@@ -728,9 +829,82 @@ class Aggregator:
         self.log.logger.info(f"Resuming {self.case} from timestep {self.timestep}.")
         return state, self.timestep
 
-    def _restore_from_progress(self, d: str, prog: dict) -> None:
+    def _try_resume_multiprocess(self, template_state):
+        """Resume over per-rank shard files, every decision collective so
+        that the ranks branch alike: rank 0 validates progress.json and the
+        run shape and broadcasts the timestep (−1: start afresh); each rank
+        checks its own shard file (present, and of that timestep) and the
+        verdicts are all-gathered, any bad shard sending every rank back to
+        t = 0.  The reward prices, setpoints and setpoint tracker, which
+        every rank steps with, are broadcast from rank 0; the collected
+        series stay rank 0's."""
+        w = self.world
+        root = self._checkpoint_root()
+        t_resume, prog = -1, None
+        if w.rank == 0:
+            d = self._latest_checkpoint_dir()
+            if d is not None:
+                try:
+                    prog = load_progress(os.path.join(d, "progress.json"))
+                    if prog.get("run_shape") == self._run_shape():
+                        t_resume = int(prog["timestep"])
+                    else:
+                        self.log.logger.warning(
+                            f"Checkpoint {d} run shape {prog.get('run_shape')} != "
+                            f"current {self._run_shape()}; starting fresh.")
+                        prog = None
+                except Exception as e:
+                    self.log.logger.warning(f"Checkpoint {d} unreadable ({e!r}); starting fresh.")
+                    prog = None
+        t_resume = int(w.broadcast(np.asarray([t_resume], np.int64))[0])
+        if t_resume < 0:
+            return template_state, 0
+        name = f"ckpt_t{t_resume:08d}"
+        shard = os.path.join(root, name, shard_file_name(w.rank, w.size))
+        local_ok = False
+        if os.path.isfile(shard):
+            try:
+                with np.load(shard) as data:
+                    local_ok = int(data["__timestep__"]) == t_resume
+            except Exception:
+                local_ok = False
+        if not w.all(local_ok, host=True):
+            self.log.logger.warning(
+                f"Checkpoint {name}: shard missing/torn on some process (local "
+                f"ok={local_ok}); all processes starting fresh.")
+            return template_state, 0
+        state = load_pytree_local(shard, template_state, expect_timestep=t_resume)
+        rps, sps = np.zeros(self.num_timesteps), np.zeros(self.num_timesteps)
+        prev_n = int(self.config["agg"].get("rl", {}).get("prev_timesteps", 12))
+        tracker = np.zeros(prev_n + 3)    # [present, max_load, min_load, *tracked]
+        if prog is not None:
+            rps = np.asarray(prog["all_rps"], dtype=np.float64)
+            sps = np.asarray(prog["all_sps"], dtype=np.float64)
+            if prog.get("tracked_loads") is not None:
+                tracked = list(prog["tracked_loads"])[:prev_n]
+                tracker[:3] = (1.0, float(prog["max_load"]), float(prog["min_load"]))
+                tracker[3:3 + len(tracked)] = tracked
+        self.all_rps = w.broadcast(rps).astype(np.float64)
+        self.all_sps = w.broadcast(sps).astype(np.float64)
+        tracker = w.broadcast(tracker)
+        if tracker[0] > 0:
+            self.max_load, self.min_load = float(tracker[1]), float(tracker[2])
+            self.tracked_loads = [float(v) for v in tracker[3:]]
+        if w.rank == 0:
+            self._restore_from_progress(os.path.join(root, name), prog,
+                                        include_tracker=False)
+        self.timestep = t_resume
+        self.resumed_from = os.path.join(root, name)
+        self.log.logger.info(
+            f"Resuming {self.case} from timestep {t_resume} (process "
+            f"{w.rank}/{w.size}).")
+        return state, self.timestep
+
+    def _restore_from_progress(self, d: str, prog: dict, include_tracker: bool = True) -> None:
         """The host bookkeeping of a checkpoint: the selected homes' series,
-        the aggregate lists, the setpoint tracker and the elapsed time."""
+        the aggregate lists, the setpoint tracker (unless
+        ``include_tracker`` is false: the ranks of a distributed run
+        restore it by broadcast) and the elapsed time."""
         collected = load_progress(os.path.join(d, "collected.json"))
         for i, home in enumerate(self.all_homes):
             series = collected.get(home["name"])
@@ -743,7 +917,7 @@ class Aggregator:
         self.all_rps = np.asarray(prog["all_rps"], dtype=np.float64)
         self.all_sps = np.asarray(prog["all_sps"], dtype=np.float64)
         self._solve_iters = list(prog["solve_iters"])
-        if prog.get("tracked_loads") is not None:
+        if include_tracker and prog.get("tracked_loads") is not None:
             self.tracked_loads = list(prog["tracked_loads"])
             self.max_load = prog["max_load"]
             self.min_load = prog["min_load"]
@@ -896,8 +1070,11 @@ class Aggregator:
 
     def check_baseline_vals(self) -> list[str]:
         """Result-shape check over the selected homes
-        (dragg/aggregator.py:698-709), surfaced in ``Summary.check_errors``."""
+        (dragg/aggregator.py:698-709), surfaced in ``Summary.check_errors``;
+        on the rank that collects the series (rank 0)."""
         errors: list[str] = []
+        if self.world.rank != 0:
+            return errors
         for i, home in enumerate(self.all_homes):
             if not self._home_selected(home):
                 continue
@@ -1002,7 +1179,10 @@ class Aggregator:
     def write_outputs(self) -> None:
         """Per-home series + Summary → <run_dir>/<case>/results.json
         (dragg/aggregator.py:831-844); only the Summary when the case has no
-        community (``summary_only_case``, the simplified RL case)."""
+        community (``summary_only_case``, the simplified RL case).  Rank 0
+        alone writes."""
+        if self.world.rank != 0:
+            return
         summary = self.summarize_baseline()
         case_dir = os.path.join(self.run_dir, self.case)
         os.makedirs(case_dir, exist_ok=True)
@@ -1026,12 +1206,12 @@ class Aggregator:
 
     def _telemetry_open(self) -> bool:
         """Open the run's telemetry bus (``events.jsonl`` + in-memory
-        metrics) when ``telemetry.enabled``; this package runs one process,
-        which is the JAX package's process 0.  The destination resolves
+        metrics) when ``telemetry.enabled``, on rank 0 alone (a run of one
+        process is rank 0).  The destination resolves
         ``telemetry.dir`` → ``$DRAGG_TELEMETRY_DIR`` → the run directory.
         A resumed run appends to the stream it left."""
         tcfg = {**default_config()["telemetry"], **self.config.get("telemetry", {})}
-        if not tcfg["enabled"]:
+        if not tcfg["enabled"] or self.world.rank != 0:
             return False
         self._forensics_on = bool(tcfg.get("forensics", False))
         tdir = tcfg["dir"] or os.environ.get(telemetry.ENV_DIR) or self.run_dir

@@ -1,5 +1,5 @@
 """Checkpoint / resume of the engine's carried state (counterpart of
-``dragg_tpu/checkpoint.py``, single process).
+``dragg_tpu/checkpoint.py``).
 
 A run's ``CommunityState`` (or one per type bucket) is persisted beside
 results.json at every chunk boundary, so a killed run resumes
@@ -15,6 +15,15 @@ holds no structure and no pickle.  A versioned checkpoint is a
 ``ckpt_t<timestep>`` directory (state.npz, progress.json and the caller's
 extra JSON files) staged under a ``.tmp`` name, renamed into place and
 published by an atomically replaced ``LATEST`` pointer.
+
+A sharded run (several ranks, ``parallel``) writes per-rank shard files
+instead: ``state.proc{r:05d}-of-{W:05d}.npz`` in the checkpoint directory,
+each holding the rank's block of every per-home leaf and the whole of
+every other leaf (its state is exactly that), in the same ``leaf_NNNN``
+order, with the checkpoint's ``__timestep__``, so that ranks with separate
+disks resume without reading each other's files and a torn checkpoint
+(shards of different timesteps) is caught on load.  The aggregator's
+protocol publishes them (``Aggregator._save_checkpoint_multiprocess``).
 """
 
 from __future__ import annotations
@@ -109,7 +118,8 @@ def load_pytree(path: str, template):
     with np.load(path) as data:
         # Numerically: a lexicographic sort would put leaf_10000 between
         # leaf_1000 and leaf_1001.
-        keys = sorted(data.files, key=lambda k: int(k.rsplit("_", 1)[1]))
+        keys = sorted((k for k in data.files if k.startswith("leaf_")),
+                      key=lambda k: int(k.rsplit("_", 1)[1]))
         if len(keys) != len(leaves):
             raise ValueError(f"Checkpoint {path} has {len(keys)} leaves; template has "
                              f"{len(leaves)}")
@@ -125,6 +135,39 @@ def load_pytree(path: str, template):
             else:
                 new_leaves.append(arr.astype(np.asarray(tmpl).dtype))
     return tree_unflatten(structure, new_leaves)
+
+
+# ------------------------------------------------------- rank shard files
+def shard_file_name(process_index: int, process_count: int) -> str:
+    return f"state.proc{process_index:05d}-of-{process_count:05d}.npz"
+
+
+def save_pytree_local(path: str, tree, timestep: int, rank: int = 0) -> None:
+    """Write this rank's state (its blocks; no collective) with
+    ``timestep`` inside, atomically."""
+    arrays = {f"leaf_{i:04d}": to_host(a) for i, a in enumerate(tree_leaves(tree))}
+    arrays["__timestep__"] = np.asarray(timestep, np.int64)
+    tmp = f"{path}.tmp{rank}.npz"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_pytree_local(path: str, template, expect_timestep: int | None = None):
+    """Load this rank's shard file into ``template``'s structure (the
+    rank's state); raises ``ValueError`` when the file holds another
+    timestep than ``expect_timestep`` (a torn checkpoint) or a leaf count
+    or shape other than the template's."""
+    with np.load(path) as data:
+        if expect_timestep is not None:
+            got = int(data["__timestep__"])
+            if got != expect_timestep:
+                raise ValueError(
+                    f"shard file {path} holds timestep {got}, expected "
+                    f"{expect_timestep} (torn multi-process checkpoint)")
+    return load_pytree(path, template)
 
 
 # ------------------------------------------------- versioned checkpoints

@@ -398,8 +398,11 @@ _DEFAULT: dict[str, Any] = {
         "admm_alpha": 1.6,
         "admm_eps": 1e-4,
         "fix_tou_peak": False,  # reference bug parity: peak price is overwritten by shoulder (dragg/aggregator.py:214-215)
-        "mesh_axis": "homes",
-        "sharded": "auto",        # the sharded mesh: not ported; true raises
+        "mesh_axis": "homes",     # the home axis's name in the sharded
+                                  # engine's log (the port has no named axes)
+        "sharded": "auto",        # shard the home axis over the ranks of a
+                                  # distributed run (parallel/): "auto" when
+                                  # there are several, true/false force it
         "profile_dir": "",        # torch.profiler trace of the second chunk
                                   # ($JAX_PROFILE_DIR overrides it)
         "ddpg_actor_lr": 1e-3,

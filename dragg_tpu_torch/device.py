@@ -30,9 +30,11 @@ pin_precision()
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` → ``"cuda"``, which must
-    exist.  Applies :func:`pin_precision`."""
+    exist, as must a numbered card.  Applies :func:`pin_precision`."""
     pin_precision()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu'")
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"no CUDA device {dev.index}: {torch.cuda.device_count()} visible")
     return dev

@@ -51,7 +51,7 @@ import torch
 
 from dragg_tpu_torch import rng
 from dragg_tpu_torch.device import resolve_device
-from dragg_tpu_torch.homes import TYPE_CODES, slice_batch, type_bucket_ranges
+from dragg_tpu_torch.homes import TYPE_CODES, pad_batch, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
 from dragg_tpu_torch.models.fallback import fallback_control
 from dragg_tpu_torch.ops.admm import (
@@ -65,6 +65,7 @@ from dragg_tpu_torch.ops.dual import primal
 from dragg_tpu_torch.ops.ipm import band_plan, ipm_solve_qp
 from dragg_tpu_torch.ops.precision import validate_precision
 from dragg_tpu_torch.ops.reluqp import reluqp_solve_qp_cached
+from dragg_tpu_torch.parallel.world import ONE
 from dragg_tpu_torch.ops.qp import (
     QPLayout,
     TAP_TEMP,
@@ -150,7 +151,12 @@ class _TypeBucket(NamedTuple):
                              # worst_bucket codes index)
     lay: QPLayout
     comm_start: int          # first home in community order
-    n: int                   # homes in the bucket
+    n: int                   # slots in this rank's block of the bucket
+    n_real: int              # homes of the bucket (all ranks)
+    start_slot: int          # the bucket's first slot in the global slot order
+    n_slots: int             # the bucket's slots, padded to a multiple of
+                             # the world size (all ranks)
+    block_start: int         # this rank's first slot within the bucket
     static: object           # ops.qp.HomeQPStatic
     batch: object            # HomeBatch of tensors
     check_mask: torch.Tensor  # (n,) float32
@@ -296,13 +302,36 @@ class EngineParams(NamedTuple):
     obs_worst_k: int    # worst homes captured per bucket per step
 
 
+# Outputs summed over the ranks: the masked community totals and the
+# observatory's histograms and counts; and the solver maxima.
+_SUM_FIELDS = ("agg_load", "forecast_load", "agg_cost", "repair_failed",
+               "bank_fallback_count", "conv_hist", "iters_hist", "iters_sum",
+               "diverged_count")
+_MAX_FIELDS = ("admm_iters", "r_prim_max", "r_dual_max")
+_WORST_FIELDS = ("worst_idx", "worst_rp", "worst_rd", "worst_iters", "worst_bucket")
+
+
 class Engine:
     """The batched community step for one (community, config), with every
-    per-home constant on ``device``.  Build via :func:`make_engine`."""
+    per-home constant on ``device``.  Build via :func:`make_engine`.
+
+    ``world`` (a ``parallel.World``; ``parallel.make_sharded_engine``
+    passes the process's) splits the home axis over ranks as the JAX
+    package's mesh does: each bucket is padded to a multiple of the world
+    size with edge replicas of its last home (check mask 0), and this rank
+    keeps the contiguous block ``[r·n/W, (r+1)·n/W)`` of every padded
+    bucket.  Per-home outputs and state leaves are then the rank's block;
+    the outputs' totals, maxima and observatory fold are the whole
+    world's (:meth:`_global_outputs`), and :meth:`gather_homes` brings a
+    chunk's per-home rows to rank 0.  ``n_homes`` counts the world's
+    slots, ``true_n_homes`` the real homes.  The world of one pads
+    nothing, keeps everything and makes no collective."""
 
     def __init__(self, params: EngineParams, batch, env_oat, env_ghi, env_tou,
-                 check_mask=None, device=None, fleet=None, events=None, hour0: int = 0):
+                 check_mask=None, device=None, fleet=None, events=None, hour0: int = 0,
+                 world=None):
         self.params = params
+        self.world = world = ONE if world is None else world
         self.device = dev = resolve_device(device)
         codes = np.asarray(batch.type_code)
         # A timeline that changes nothing is None, so an event-free run is
@@ -343,8 +372,11 @@ class Engine:
         self._carry_warm = params.solver != "ipm" or params.ipm_warm
         # The check-window route: "auto" stays on the einsum ("lax") path,
         # as in the JAX package; "pallas" runs ops/iter_kernels.fused_window
-        # (the CUDA kernel on the card, its plain version on the CPU).
-        self._iter_kernel = "lax" if params.iter_kernel == "auto" else params.iter_kernel
+        # (the CUDA kernel on the card, its plain version on the CPU),
+        # except in a world of more than one rank, where the JAX package
+        # routes it to lax (its kernel is not shard_map-wired).
+        self._iter_kernel = ("lax" if params.iter_kernel == "auto" or world.size > 1
+                             else params.iter_kernel)
         # The ADMM carries its band factor as one array, so "cr" (whose
         # factor is a dict) runs the plain band versions there; the IPM
         # runs cyclic reduction fully.
@@ -372,40 +404,61 @@ class Engine:
         keys = torch.stack([rng.prng_key(sd, dev) for sd in seeds])
         ranges = resolve_bucket_plan(params.bucketed, codes)
         self._bucketed = ranges is not None
-        self.n_homes = batch.n_homes
+        self.true_n_homes = batch.n_homes
         if ranges is None:
+            # The unbucketed engine is its one superset bucket, so the
+            # whole batch is padded as one (dragg_tpu/parallel/mesh.py).
             ranges = [("superset", 0, batch.n_homes)]
         self._buckets: list[_TypeBucket] = []
+        slot = 0
         for ordinal, (tname, a, b) in enumerate(ranges):
             spec = (superset_spec_for(codes) if tname == "superset"
                     else TYPE_SPECS[tname])
             if grid_events:
                 spec = spec._replace(has_grid=True)
-            sub = slice_batch(batch, a, b)
-            row = lambda k: torch.as_tensor(rows[k][a:b], dtype=torch.int64,  # noqa: E731
-                                            device=dev)
+            sub, pmask = pad_batch(slice_batch(batch, a, b), world.size)
+            n_slots = sub.n_homes
+            n = n_slots // world.size
+            lo = world.rank * n
+            sub = slice_batch(sub, lo, lo + n)
+            pad = (0, n_slots - (b - a))
+
+            def row(k, a=a, b=b, pad=pad, lo=lo, n=n, n_slots=n_slots):
+                if fleet is None and not self._bucketed and k in ("home_idx", "noise_idx"):
+                    # The JAX package numbers the padded one-batch rows.
+                    v = np.arange(n_slots)
+                else:
+                    v = np.pad(rows[k][a:b], pad, mode="edge")
+                return torch.as_tensor(v[lo:lo + n], dtype=torch.int64, device=dev)
+
             lay = QPLayout(H, spec)
             static = build_qp_static(sub, H, params.dt, spec, device=dev)
-            # The ADMM's backend, per bucket (one shard): "auto" goes banded
-            # only past BAND_AUTO_BYTES of dense Sinv.
+            # The ADMM's backend, per bucket: "auto" goes banded only past
+            # BAND_AUTO_BYTES of dense Sinv on one rank.
             plan = (plan_for(_schur_structure_for(static.pattern), lay.m_eq)
                     if params.admm_banded_factor else None)
             backend = resolve_backend(
-                params.admm_solve_backend, b - a, lay.m_eq, plan is not None,
-                elem_bytes=2 if params.admm_matvec_dtype == "bf16" else 4)
+                params.admm_solve_backend, n_slots, lay.m_eq, plan is not None,
+                elem_bytes=2 if params.admm_matvec_dtype == "bf16" else 4,
+                n_shards=world.size)
             self._buckets.append(_TypeBucket(
-                name=tname, ordinal=ordinal, lay=lay, comm_start=a, n=b - a,
+                name=tname, ordinal=ordinal, lay=lay, comm_start=a, n=n,
+                n_real=b - a, start_slot=slot, n_slots=n_slots, block_start=lo,
                 static=static,
                 batch=home_batch_from_numpy(sub._asdict(), dev),
-                check_mask=torch.as_tensor(cmask[a:b], dtype=F32, device=dev),
+                check_mask=torch.as_tensor((np.pad(cmask[a:b], pad) * pmask)[lo:lo + n],
+                                           dtype=F32, device=dev),
                 noise_idx=row("noise_idx"),
-                home_key=(keys[0].expand(b - a, 2) if fleet is None
+                home_key=(keys[0].expand(n, 2) if fleet is None
                           else keys[row("comm_idx")]),
                 home_idx=row("home_idx").to(torch.int32),
                 env_off=row("env_off"),
                 comm_idx=row("comm_idx"),
                 solve_backend=backend,
             ))
+            slot += n_slots
+        # Home slots of the whole world (true_n_homes: the real homes).
+        self.n_homes = slot
         self._obs_edges = torch.tensor(OBS_ITER_EDGES, dtype=torch.int32, device=dev)
 
     @property
@@ -439,10 +492,10 @@ class Engine:
     def bucket_info(self) -> list[dict]:
         """One dict per bucket, in ordinal order (the observatory's
         ``worst_bucket`` codes index this list): its type, home and slot
-        range, solved shape and the bandwidth of its Schur band factor.
-        Slots are homes here (no shard padding)."""
-        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n,
-                     start_slot=c.comm_start, n_slots=c.n,
+        range over the whole world, solved shape and the bandwidth of its
+        Schur band factor."""
+        return [dict(name=c.name, comm_start=c.comm_start, n_real=c.n_real,
+                     start_slot=c.start_slot, n_slots=c.n_slots,
                      m_eq=c.lay.m_eq, n_var=c.lay.n,
                      nnz=c.static.pattern.nnz,
                      band_bw=band_plan(c.static.pattern).bw)
@@ -459,14 +512,15 @@ class Engine:
         e_batt, counter): the forensic dump's chunk-start snapshot.
         ``state`` is the engine's (tensors) or a host copy of it (numpy);
         ``home_idx`` is the community-major fleet index (``all_homes``
-        order), mapped to its batch row first."""
-        if not 0 <= home_idx < self.n_homes:
+        order), mapped to its slot first; empty when the home is not in
+        this rank's block."""
+        if not 0 <= home_idx < self.true_n_homes:
             return {}
-        row = int(self.real_home_cols[home_idx])
+        slot = int(self.real_home_cols[home_idx])
         states = state if self._bucketed else (state,)
         for ctx, st in zip(self._buckets, states):
-            if ctx.comm_start <= row < ctx.comm_start + ctx.n:
-                local = row - ctx.comm_start
+            local = slot - ctx.start_slot - ctx.block_start
+            if 0 <= local < ctx.n:
                 return {f: float(getattr(st, f)[local])
                         for f in ("temp_in", "temp_wh", "e_batt", "counter")}
         return {}
@@ -489,12 +543,15 @@ class Engine:
 
     @property
     def real_home_cols(self) -> np.ndarray:
-        """Column of each home of the merged per-home outputs, in the
-        community-major fleet order (the aggregator's ``all_homes``
-        order): the identity for one community; for a fleet, whose batch
-        is type-major, the inverse of the rows' fleet index."""
-        cols = np.empty(self.n_homes, dtype=np.int64)
-        cols[self._fleet_rows["home_idx"]] = np.arange(self.n_homes)
+        """Column of each home of the merged per-home outputs over the
+        whole world's slots (the buckets' padded slots, concatenated), in
+        the community-major fleet order (the aggregator's ``all_homes``
+        order): the identity for one community in a world of one; for a
+        fleet, whose batch is type-major, through the rows' fleet index."""
+        cols = np.empty(self.true_n_homes, dtype=np.int64)
+        g = self._fleet_rows["home_idx"]
+        for c in self._buckets:
+            cols[g[c.comm_start:c.comm_start + c.n_real]] = c.start_slot + np.arange(c.n_real)
         return cols
 
     @property
@@ -510,11 +567,11 @@ class Engine:
         return np.stack([comm, cols], axis=1)
 
     def community_fold_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """``(comm_idx, mask)`` aligned with the merged per-home output
-        columns, for per-community sums of a per-home series: summing
-        ``vec * mask`` over each community's columns gives that
-        community's share of ``agg_load``-style totals."""
-        comm = self._fleet_rows["comm_idx"]
+        """``(comm_idx, mask)`` aligned with this rank's merged per-home
+        output columns, for per-community sums of a per-home series:
+        summing ``vec * mask`` over each community's columns gives this
+        rank's share of that community's ``agg_load``-style totals."""
+        comm = np.concatenate([c.comm_idx.cpu().numpy() for c in self._buckets])
         mask = np.concatenate([c.check_mask.cpu().numpy() for c in self._buckets])
         return comm.astype(np.int32), mask.astype(np.float32)
 
@@ -672,6 +729,9 @@ class Engine:
         QP, then the integer pin of the first action.  Returns (solution,
         solver carry, relaxed solution, repair_failed)."""
         p = self.params
+        # The solvers' batch-global decisions (the IPM's all-frozen exit,
+        # the ADMM's and ReLU-QP's check windows) cross the ranks.
+        world = self.world if self.world.size > 1 else None
         if p.solver == "ipm":
             def run_ipm(l_box, u_box, eps=p.ipm_eps):
                 return ipm_solve_qp(
@@ -681,7 +741,7 @@ class Engine:
                     eps_abs=eps, eps_rel=eps,
                     x0=state.warm_x if p.ipm_warm else None,
                     freeze_zmax=p.ipm_freeze_zmax, fused=p.band_fused,
-                    band_kernel=p.band_kernel)
+                    band_kernel=p.band_kernel, world=world)
 
             relaxed = run_ipm(qp.l_box, qp.u_box)
             # The pinned re-solve runs cold at the looser repair_eps: what
@@ -700,7 +760,7 @@ class Engine:
                         eps_abs=p.admm_eps, eps_rel=p.admm_eps, reg=p.reg,
                         iters=p.reluqp_iters, patience=p.admm_patience,
                         tail_iters=p.reluqp_tail_iters, precision=p.precision,
-                        iter_kernel=self._iter_kernel,
+                        iter_kernel=self._iter_kernel, world=world,
                         x0=x0, y_box0=y0, rho_warm=rho_w)
             else:
                 # The ADMM: the carry holds the scalings and the Schur
@@ -719,7 +779,7 @@ class Engine:
                         refine=p.admm_refine, anderson=p.admm_anderson,
                         banded_factor=p.admm_banded_factor,
                         solve_backend=ctx.solve_backend,
-                        band_kernel=self._admm_band_kernel,
+                        band_kernel=self._admm_band_kernel, world=world,
                         x0=x0, y_box0=y0, rho0=rho_w)
 
             # Both are warm-started from the receding-horizon shift of the
@@ -1015,17 +1075,98 @@ class Engine:
                                       repair_failed)
         return new_state, factor_b, out
 
-    def _step(self, state, t: int, rp, refresh: bool, factor):
-        """One community timestep: (new_state, new solver carry, outputs).
-        Bucketed engines step each bucket at its own shape (state and carry
-        are per-bucket tuples) and merge the outputs back into community
-        order."""
+    def _step_local(self, state, t: int, rp, refresh: bool, factor):
+        """One community timestep on this rank's homes: (new_state, new
+        solver carry, outputs).  Bucketed engines step each bucket at its
+        own shape (state and carry are per-bucket tuples) and merge the
+        outputs back into community order."""
         wrap = (lambda a: a) if self._bucketed else (lambda a: (a,))
         parts = [self._step_bucket(c, s, t, rp, refresh, f)
                  for c, s, f in zip(self._buckets, wrap(state), wrap(factor))]
         new_states, factors, outs = zip(*parts)
         unwrap = tuple if self._bucketed else (lambda a: a[0])
         return unwrap(new_states), unwrap(factors), self._merge_outputs(list(outs))
+
+    @property
+    def n_local(self) -> int:
+        """Slots of this rank's block, over every bucket."""
+        return sum(c.n for c in self._buckets)
+
+    def _global_outputs(self, out: StepOutputs) -> StepOutputs:
+        """The totals, maxima and observatory fold of ``out`` (one step, or
+        a chunk's steps stacked) over every rank; the per-home leaves stay
+        this rank's.  Three small collectives on the engine's group."""
+        w = self.world
+        if w.size == 1:
+            return out
+        f = out._asdict()
+        host = {k: primal(f[k]).detach().cpu().numpy() for k in _SUM_FIELDS + _MAX_FIELDS}
+
+        def fold(fields, op):
+            flat = np.concatenate([host[k].ravel().astype(np.float64) for k in fields])
+            red, i = w.all_reduce(flat, op), 0
+            for k in fields:
+                a = host[k]
+                f[k] = torch.as_tensor(red[i:i + a.size].reshape(a.shape).astype(a.dtype),
+                                       device=self.device)
+                i += a.size
+
+        fold(_SUM_FIELDS, "sum")
+        fold(_MAX_FIELDS, "max")
+        if self.params.obs_per_home:
+            f.update(self._global_worst(f))
+        return StepOutputs(**f)
+
+    def _global_worst(self, f: dict) -> dict:
+        """Each bucket's worst homes over the world: every rank's local
+        captures (its ``min(k, block)`` worst by r_prim) all-gathered and
+        re-ranked to the bucket's ``min(k, n_slots)``, ties to the lower
+        slot first, as ``lax.top_k`` over the whole bucket ranks them."""
+        local = np.stack([primal(f[k]).detach().cpu().numpy().astype(np.float64)
+                          for k in _WORST_FIELDS])          # (5, *lead, L)
+        g = self.world.all_gather(local)                    # (W, 5, *lead, L)
+        K = self.params.obs_worst_k
+        parts, off = [], 0
+        for c in self._buckets:
+            kl = min(K, c.n)
+            cand = np.concatenate([g[r, ..., off:off + kl] for r in range(g.shape[0])],
+                                  axis=-1)                  # (5, *lead, W·kl)
+            off += kl
+            score = np.where(cand[0] >= 0, cand[1], -1.0)
+            order = np.argsort(-score, axis=-1, kind="stable")[..., :min(K, c.n_slots)]
+            parts.append(np.take_along_axis(cand, order[None], axis=-1))
+        res = np.concatenate(parts, axis=-1)
+        dtypes = (torch.int32, torch.float32, torch.float32, torch.float32, torch.int32)
+        return {k: torch.as_tensor(res[i], device=self.device).to(dt)
+                for i, (k, dt) in enumerate(zip(_WORST_FIELDS, dtypes))}
+
+    def gather_homes(self, arrays: dict) -> dict | None:
+        """Rank 0's per-home rows over the world's slots: each (T, n_local)
+        float32 array of this rank's block becomes (T, n_homes), the
+        buckets' rank blocks in rank order (the columns ``real_home_cols``
+        indexes); None on the other ranks.  One gather on the host group,
+        once a chunk (the arrays as given in a world of one)."""
+        if self.world.size == 1:
+            return arrays
+        names = list(arrays)
+        stack = np.stack([np.asarray(arrays[k], dtype=np.float32) for k in names])
+        g = self.world.gather(stack, host=True)             # (W, F, T, n_local)
+        if g is None:
+            return None
+        W, F, T, _ = g.shape
+        cols, off = [], 0
+        for c in self._buckets:
+            blk = g[..., off:off + c.n]                      # (W, F, T, n_b)
+            cols.append(blk.transpose(1, 2, 0, 3).reshape(F, T, W * c.n))
+            off += c.n
+        whole = np.concatenate(cols, axis=-1)
+        return {k: whole[i] for i, k in enumerate(names)}
+
+    def _step(self, state, t: int, rp, refresh: bool, factor):
+        """One community timestep: (new_state, new solver carry, outputs),
+        the outputs' totals over the whole world."""
+        state, factor, out = self._step_local(state, t, rp, refresh, factor)
+        return state, factor, self._global_outputs(out)
 
     # ------------------------------------------------------------------ api
     def _rp(self, rp) -> torch.Tensor:
@@ -1054,10 +1195,12 @@ class Engine:
         outs = []
         for i in range(rps.shape[0]):
             t = int(t0) + i
-            state, factor, out = self._step(state, t, rps[i], i == 0 or t % K == 0,
-                                            factor)
+            state, factor, out = self._step_local(state, t, rps[i],
+                                                  i == 0 or t % K == 0, factor)
             outs.append(out)
-        return state, StepOutputs(*[torch.stack(leaves) for leaves in zip(*outs)])
+        # One reduction a chunk: the steps' totals do not feed the next step.
+        return state, self._global_outputs(
+            StepOutputs(*[torch.stack(leaves) for leaves in zip(*outs)]))
 
 
 def per_home_obs(rp, rd, conv_iters, diverged, check_mask, home_idx, ordinal: int,

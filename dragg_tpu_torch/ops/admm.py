@@ -36,6 +36,13 @@ inverse's window, ~30 small launches an iteration, is captured once a
 solve as a CUDA graph and replayed (:class:`_WindowGraph`); the band
 backend's windows launch one by one, so that each band kernel's launch is
 counted.
+
+On a sharded engine the batch is one rank's block of homes, and the
+window's decisions are the JAX package's batch-global ones: the host read
+is all-gathered over the ranks (``world``), so the finished-home count,
+the stagnation patience, the exit and the refactorization a rho change
+asks for are the whole world's, and every rank stops and refactors at the
+same window.
 """
 
 from __future__ import annotations
@@ -70,11 +77,16 @@ BAND_AUTO_BYTES = 1 << 30
 # refresh, or an in-loop rho change.
 FACTOR_RANGE = "admm_factor"
 FACTORIZATIONS = {"refresh": 0, "rho": 0}
+# The check windows this process read since the last reset (the ADMM's
+# and ReLU-QP's), counted before any cross-rank reduction: every rank of
+# a sharded solve reads the same windows.
+CHECK_WINDOWS = {"windows": 0}
 
 
 def reset_factorizations() -> None:
     for k in FACTORIZATIONS:
         FACTORIZATIONS[k] = 0
+    CHECK_WINDOWS["windows"] = 0
 
 
 # Replay the dense inverse's check windows as CUDA graphs on the card
@@ -298,6 +310,7 @@ def _admm_impl(
     rho0: torch.Tensor | None = None,
     carry_in: FactorCarry | None = None,
     refresh: bool = True,    # with carry_in: recompute scalings + factor
+    world=None,              # parallel.World of a sharded engine (None: one rank)
 ) -> tuple[ADMMSolution, FactorCarry]:
     """Solve B problems  min ½ x'(reg I)x + q'x  s.t. A_eq x = b_eq,
     l ≤ x ≤ u  simultaneously.  Warm-startable in unscaled units (x0,
@@ -532,9 +545,9 @@ def _admm_impl(
     state = (x, z_box, nu, y_box)
     it = 0
     pinf = torch.zeros((B,), dtype=torch.bool, device=dev)
-    best_done = torch.tensor(-1, device=dev)
+    best_done = -1
     best_r = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    last_improve = torch.tensor(0, device=dev)
+    last_improve = 0
     conv_it = torch.full((B,), -1, dtype=torch.int32, device=dev)
     aa = aa_init() if K_aa > 0 else None
     graph = None
@@ -562,15 +575,9 @@ def _admm_impl(
         done = ok | pinf
         it += check_every
         conv_it = torch.where((conv_it < 0) & done, it, conv_it)
-        # Progress: another home finished, or an unfinished home's residual
-        # still descends.
-        n_done = torch.sum(done)
         r_tot = r_prim + r_dual
         descending = (r_tot < 0.99 * best_r) & ~done
-        improved = (n_done > best_done) | torch.any(descending)
-        best_done = torch.maximum(best_done, n_done)
         best_r = torch.minimum(best_r, r_tot)
-        last_improve = torch.where(improved, it, last_improve)
         rho_changed = torch.zeros((B,), dtype=torch.bool, device=dev)
         rho_next = rho_b
         if adaptive_rho and (it // check_every) % max(1, rho_update_every) == 0:
@@ -581,9 +588,15 @@ def _admm_impl(
             update = (ratio > 5.0) | (ratio < 0.2)
             rho_next = torch.where(update & ~done, rho_new, rho_b)
             rho_changed = rho_next != rho_b
-        # The window's one host read: the exit and the refactorization.
-        all_done, last, refactor = torch.stack(
-            [torch.all(done).long(), last_improve, torch.any(rho_changed).long()]).tolist()
+        # The window's one host read: the exit, the progress (another home
+        # finished, or an unfinished home's residual still descends) and
+        # the refactorization.
+        all_done, n_done, desc, refactor = _window_verdict(
+            [torch.all(done).long(), torch.sum(done), torch.any(descending).long(),
+             torch.any(rho_changed).long()], world)
+        if n_done > best_done or desc:
+            last_improve = it
+        best_done = max(best_done, n_done)
         if refactor:
             F = factor(rho_next, "rho")
             if graph is not None:
@@ -596,7 +609,7 @@ def _admm_impl(
             state = (x, s_next[:, :n], nu, s_next[:, n:])
         keep = it < iters and not all_done
         if patience > 0:
-            keep = keep and it - last < patience * check_every
+            keep = keep and it - last_improve < patience * check_every
 
     x, z_box, nu, y_box = state
     r_prim, r_dual, _, _, ok = residuals(x, z_box, nu, y_box)
@@ -615,6 +628,20 @@ def _admm_impl(
         diverged=pinf,
     )
     return sol, FactorCarry(d=d, e_eq=e_eq, e_box=e_box, c=c, Sinv=F[1])
+
+
+def _window_verdict(flags: list, world) -> list[int]:
+    """A check window's host read, ``[all(done), sum(done), any(descending),
+    any(rho_changed)]`` (ReLU-QP: the first three), over the whole world:
+    one read, then with ``world`` one all-gather, combined as min, sum,
+    max and max."""
+    local = torch.stack(flags).tolist()
+    CHECK_WINDOWS["windows"] += 1
+    if world is None:
+        return local
+    g = world.all_gather(np.asarray(local, dtype=np.int64))
+    combine = (np.min, np.sum, np.max, np.max)
+    return [int(f(g[:, i])) for i, f in zip(range(len(local)), combine)]
 
 
 def admm_solve_qp(pat, vals, b_eq, l_box, u_box, q, **kwargs) -> ADMMSolution:

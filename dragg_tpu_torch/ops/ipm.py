@@ -14,6 +14,12 @@ kernels of ``ops/band_kernels.py`` (their plain versions on the CPU).
 
 Homes whose final unscaled residuals miss tolerance come back
 ``solved=False`` and the engine routes them to the fallback controller.
+
+On a sharded engine the batch is one rank's block of homes.  The phase-1
+loop's all-frozen exit is decided over every rank (``world``), as the
+JAX package's loop outside ``shard_map`` is; the straggler tail is per
+rank, as JAX's per-shard tail, and the reported iteration count adds the
+ranks' longest tail.
 """
 
 from __future__ import annotations
@@ -39,6 +45,14 @@ from dragg_tpu_torch.ops.qp import (
 )
 
 _BIG = 1e20
+# Phase-1 iterations this process ran since the last reset, before any
+# cross-rank reduction: every rank of a sharded solve runs the same ones
+# (the tail, per rank, is not counted here).
+PHASE1_ITERATIONS = {"iterations": 0}
+
+
+def reset_phase1_iterations() -> None:
+    PHASE1_ITERATIONS["iterations"] = 0
 
 
 def band_plan(pat: SparsePattern):
@@ -72,12 +86,14 @@ def ipm_solve_qp(
     x0: torch.Tensor | None = None,
     warm_mu: float = 1e-2,
     freeze_zmax: float = 300.0,
+    world=None,
 ) -> ADMMSolution:
     """Solve the batch (all tensors float32 on one device); returns the
     ADMM-compatible solution record (y_box carries z_u − z_l).  ``fused``
     runs the factor and the predictor solve as one kernel launch;
     ``band_kernel = "xla"`` runs the band operations' plain versions
-    instead of the kernels (``band_kernels.make_band_ops``)."""
+    instead of the kernels (``band_kernels.make_band_ops``).  ``world``
+    (``parallel.World``, None for one rank) shares the loop's exit."""
     B = vals.shape[0]
     m, n = pat.m, pat.n
     dev = vals.device
@@ -154,7 +170,7 @@ def ipm_solve_qp(
     data = (vals_s, vp_r, vp_c, qs, bs, ls, us, reg_s, fin_l, fin_u, n_act, c * d)
     x, y, s_l, s_u, z_l, z_u, cit, i_done = _run_phases(
         B, iters, tail_frac, tail_iters, eps_abs, eps_rel, data,
-        (x, y, s_l, s_u, z_l, z_u), shared)
+        (x, y, s_l, s_u, z_l, z_u), shared, world)
 
     # --- Final residuals in UNSCALED units (ADMM-convention norms).
     mvx = torch.sum(vp_r * x[:, row_cols], dim=2)
@@ -343,21 +359,24 @@ def _make_loop(data, shared, eps_abs, eps_rel):
     return body, converged
 
 
-def _while(body, limit, state, all_frozen):
+def _while(body, limit, state, all_frozen, world=None):
     """``lax.while_loop`` over ``body`` while fewer than ``limit``
     iterations ran and not every home was frozen (pre-step) in the last
     one.  Checks ``frozen.all()`` on the host each iteration, so the count
-    equals the JAX package's."""
+    equals the JAX package's; with ``world``, every home of every rank
+    (one small all-reduce an iteration)."""
     i = 0
     while i < limit and not all_frozen:
         *state, frozen = body(*state)
         all_frozen = bool(frozen.all())
+        if world is not None:
+            all_frozen = world.all(all_frozen)
         i += 1
     return state, i
 
 
 def _run_phases(B, cap, tail_frac, tail_iters, eps_abs, eps_rel, data, carry0,
-                shared):
+                shared, world=None):
     """Phase-1 full-batch Mehrotra loop, then optional tail compaction: the
     worst ``ceil(B·tail_frac)`` homes are gathered into a compact sub-batch
     that alone runs up to ``tail_iters`` more iterations.  Returns
@@ -373,7 +392,8 @@ def _run_phases(B, cap, tail_frac, tail_iters, eps_abs, eps_rel, data, carry0,
     # Early exit once every home is frozen: frozen homes take zero-length
     # steps, so stopping there is output-identical to running the budget.
     (x, y, s_l, s_u, z_l, z_u, cit), i_done = _while(
-        body, iters, (*carry0, cit), False)
+        body, iters, (*carry0, cit), False, world)
+    PHASE1_ITERATIONS["iterations"] += i_done
 
     if do_tail:
         k = max(1, min(B - 1, math.ceil(B * float(tail_frac))))
@@ -395,5 +415,5 @@ def _run_phases(B, cap, tail_frac, tail_iters, eps_abs, eps_rel, data, carry0,
             a[idx] = a2
             out.append(a)
         x, y, s_l, s_u, z_l, z_u, cit = out
-        i_done += i2
+        i_done += i2 if world is None else world.max(i2)
     return x, y, s_l, s_u, z_l, z_u, cit, i_done

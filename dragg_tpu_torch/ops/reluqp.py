@@ -32,7 +32,9 @@ rho and a bounded tail of iterations, reported per home in
 
 PyTorch runs eagerly: the while-loop over windows is a Python loop that
 reads ``all_done`` and the patience counter once per window (one host
-sync per window); ``refresh`` is a Python bool.
+sync per window); ``refresh`` is a Python bool.  On a sharded engine that
+read and the tail's ``any(need_tail)`` are the whole world's (``world``),
+as the JAX package's batch-global loop.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from dragg_tpu_torch.ops.admm import (
     ADMMSolution,
     _pad_gather,
     _schur_structure_for,
+    _window_verdict,
     ruiz_equilibrate_sparse,
 )
 from dragg_tpu_torch.ops.precision import mxu_einsum, validate_precision
@@ -172,6 +175,7 @@ def _reluqp_impl(
                                            # to the nearest bank entry
     carry_in: ReLUQPCarry | None = None,
     refresh: bool = True,    # with carry_in: recompute scalings + bank
+    world=None,              # parallel.World of a sharded engine (None: one rank)
 ) -> tuple[ADMMSolution, ReLUQPCarry]:
     """Solve B problems  min ½ x'(reg I)x + q'x  s.t. A_eq x = b_eq,
     l ≤ x ≤ u  with the pre-factorized dense iteration (module
@@ -314,9 +318,9 @@ def _reluqp_impl(
     state = (x, z_box, nu, y_box)
     it = 0
     pinf = torch.zeros((B,), dtype=torch.bool, device=dev)
-    best_done = torch.tensor(-1, device=dev)
+    best_done = -1
     best_r = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    last_improve = torch.tensor(0, device=dev)
+    last_improve = 0
     conv_it = torch.full((B,), -1, dtype=torch.int32, device=dev)
     keep = iters > 0
     while keep:
@@ -328,23 +332,23 @@ def _reluqp_impl(
         done = ok | pinf
         it += check_every
         conv_it = torch.where((conv_it < 0) & done, it, conv_it)
-        n_done = torch.sum(done)
         r_tot = r_prim + r_dual
         descending = (r_tot < 0.99 * best_r) & ~done
-        improved = (n_done > best_done) | torch.any(descending)
-        best_done = torch.maximum(best_done, n_done)
         best_r = torch.minimum(best_r, r_tot)
-        last_improve = torch.where(improved, it, last_improve)
         # Rho adaptation = bank-index arithmetic, every window.
         ratio = torch.sqrt((r_prim / torch.clamp(p_sc, min=1e-10))
                            / torch.clamp(r_dual / torch.clamp(d_sc, min=1e-10), min=1e-10))
         step = torch.where(ratio > 5.0, 1, torch.where(ratio < 0.2, -1, 0))
         idx = torch.clamp(idx + torch.where(done, 0, step), 0, R - 1)
-        # The loop condition: one host read per window.
-        all_done, last = torch.stack([torch.all(done).long(), last_improve]).tolist()
+        # The loop condition: one host read per window, over the world.
+        all_done, n_done, desc = _window_verdict(
+            [torch.all(done).long(), torch.sum(done), torch.any(descending).long()], world)
+        if n_done > best_done or desc:
+            last_improve = it
+        best_done = max(best_done, n_done)
         keep = it < iters and not all_done
         if patience > 0:
-            keep = keep and it - last < patience * check_every
+            keep = keep and it - last_improve < patience * check_every
 
     x, z_box, nu, y_box = state
     r_prim, r_dual, _, _, ok = residuals(x, z_box, nu, y_box)
@@ -353,7 +357,12 @@ def _reluqp_impl(
     # left neither converged nor certified.
     need_tail = ~(ok | pinf)
     fallback = torch.zeros((B,), dtype=torch.bool, device=dev)
-    if tail_iters > 0 and bool(torch.any(need_tail)):
+    any_tail = bool(torch.any(need_tail)) if tail_iters > 0 else False
+    # The world runs the tail when any of its homes needs it; a rank whose
+    # homes need none adopts nothing from it, so it only counts the
+    # iterations.
+    world_tail = any_tail if world is None or tail_iters == 0 else world.any(any_tail)
+    if any_tail:
         rho_b = bank_arr[idx]
         Dinv = diag_inv(rho_b)
         Sinv_ex, _ = equilibrated_spd_inverse(form_S(Dinv))
@@ -365,9 +374,10 @@ def _reluqp_impl(
         nu = torch.where(m1, nu2, nu)
         y_box = torch.where(m1, y2, y_box)
         conv_it = torch.where(need_tail & (conv_it < 0), it + tail_iters, conv_it)
-        it += tail_iters
         fallback = need_tail
         r_prim, r_dual, _, _, ok = residuals(x, z_box, nu, y_box)
+    if world_tail:
+        it += tail_iters
 
     # Final polish: D-weighted projection onto the equality manifold with
     # refinement against the exact current S (absorbs the bank's staleness

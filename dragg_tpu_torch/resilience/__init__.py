@@ -22,8 +22,8 @@ CUDA→CPU degradation of ``run --supervised``.
 Import rule: nothing here imports torch at module level, and the parent
 side (supervisor, liveness, runner, taxonomy, faults) never imports it at
 all; probes and workloads run in subprocesses (:mod:`simchild`).
-``devices`` (the JAX package's device counting for the sharded mesh)
-waits for sharding.
+``devices`` counts the ranks a run shards over (not imported here: it
+reads the process's world).
 """
 
 from dragg_tpu_torch.resilience.taxonomy import (  # noqa: F401

@@ -25,6 +25,7 @@ from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
 from dragg_tpu_torch import rng
 from dragg_tpu_torch.checkpoint import to_host
 from dragg_tpu_torch.device import resolve_device
+from dragg_tpu_torch.parallel.world import current_world
 from dragg_tpu_torch.rl import core, neural
 from dragg_tpu_torch.rl.core import RLObservation, StepRecord
 from dragg_tpu_torch.rl.env import EnvCarry, observe
@@ -127,7 +128,10 @@ class RLAgent:
                 self.rl_data[name].append(float(getattr(host, name)[k]))
 
     def write_rl_data(self, output_dir: str) -> None:
-        """<output_dir>/<name>_agent-results.json (dragg/agent.py:270-273)."""
+        """<output_dir>/<name>_agent-results.json (dragg/agent.py:270-273);
+        in a sharded run rank 0 alone writes, as every output writer."""
+        if current_world().rank != 0:
+            return
         with open(os.path.join(output_dir, f"{self.name}_agent-results.json"), "w") as f:
             json.dump(self.rl_data, f, indent=4)
 

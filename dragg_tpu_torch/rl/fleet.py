@@ -664,19 +664,32 @@ def _rp_matrix(rp_c: torch.Tensor, H: int, rp_len: int, dt: int):
 class CommunityFold(NamedTuple):
     """Per-community sums of a merged per-home series: ``weights`` is
     (C, n), each row its community's check mask and zero elsewhere.  A
-    row sum is deterministic on the card, unlike an atomic scatter."""
+    row sum is deterministic on the card, unlike an atomic scatter.  On a
+    sharded engine the rows are the rank's homes, and the sums are
+    all-reduced over ``world``."""
 
     weights: torch.Tensor
+    world: object = None
 
     @classmethod
     def of(cls, engine) -> "CommunityFold":
         comm, mask = engine.community_fold_arrays()
         C = engine.n_communities
         w = (comm[None, :] == np.arange(C)[:, None]) * mask[None, :]
-        return cls(torch.as_tensor(w, dtype=F32, device=engine.device))
+        return cls(torch.as_tensor(w, dtype=F32, device=engine.device),
+                   engine.world if engine.world.size > 1 else None)
 
-    def __call__(self, vec: torch.Tensor) -> torch.Tensor:
-        return torch.sum(self.weights * vec[None, :], dim=1)
+    def __call__(self, vec: torch.Tensor, tangent: bool = False) -> torch.Tensor:
+        """The (C,) sums of ``vec``; with ``tangent`` (inside a dual level)
+        a dual tensor whose tangent is the sums' derivative."""
+        s = torch.sum(self.weights * vec[None, :], dim=1)
+        if self.world is None:
+            return s
+        p, t = fwAD.unpack_dual(s) if tangent else (s, None)
+        parts = [p, t if t is not None else torch.zeros_like(p)] if tangent else [p]
+        red = self.world.all_reduce(torch.cat(parts).detach().cpu().numpy())
+        out = torch.as_tensor(red.astype(np.float32), device=p.device).reshape(len(parts), -1)
+        return fwAD.make_dual(out[0], out[1]) if tangent else out[0]
 
 
 def mpc_response(engine, cstate, t: int, rp_mat, tangent, refresh: bool, factor,
@@ -692,7 +705,7 @@ def mpc_response(engine, cstate, t: int, rp_mat, tangent, refresh: bool, factor,
     solver carry, outputs)), all without tangents."""
     with fwAD.dual_level():
         cs, fc, outs = engine._step(cstate, t, fwAD.make_dual(rp_mat, tangent), refresh, factor)
-        fore_c, dagg = fwAD.unpack_dual(fold(outs.forecast_p_grid))
+        fore_c, dagg = fwAD.unpack_dual(fold(outs.forecast_p_grid, tangent=True))
         primal = lambda a: (fwAD.unpack_dual(a).primal  # noqa: E731
                             if isinstance(a, torch.Tensor) else a)
         cs, fc, outs = tree_map(primal, (cs, fc, outs))

@@ -4,7 +4,8 @@ each held against the JAX aggregator on the CPU
 six hourly steps):
 
 * ``tpu.sharded`` takes only "auto", true or false, and raises the JAX
-  aggregator's ValueError otherwise (true stays out of the port's slice);
+  aggregator's ValueError otherwise (true without a process group runs
+  the world of one);
 * ``$VERBOSE`` logs one PROG-level solver line a chunk;
 * ``Aggregator.reset_seed`` changes the population the next
   ``get_homes`` draws, and ``write_home_configs`` writes it.
@@ -13,6 +14,7 @@ The IPM's iteration counts and solved flags are equal in the two packages
 (tests/test_torch_engine.py), so the VERBOSE lines are compared as text.
 """
 
+import json
 import logging
 import os
 
@@ -46,10 +48,30 @@ def test_sharded_rejects_other_values_as_jax(tmp_path, value):
     assert "tpu.sharded must be 'auto', true, or false" in str(got.value)
 
 
+def _results_bytes(agg) -> bytes:
+    with open(os.path.join(agg.run_dir, "baseline", "results.json"), "rb") as f:
+        return f.read()
+
+
 def test_sharded_true_and_false(tmp_path):
-    with pytest.raises(NotImplementedError, match="tpu.sharded"):
-        Aggregator(_tiny_cfg(sharded=True), outputs_dir=str(tmp_path), device="cpu")
-    Aggregator(_tiny_cfg(sharded=False), outputs_dir=str(tmp_path), device="cpu")
+    """``sharded = true`` in a process with no group runs the world of
+    one, as the JAX package does on a host with one device: a
+    ShardedEngine whose per-home series are bit-equal to ``false``'s."""
+    from dragg_tpu_torch.parallel import ShardedEngine
+
+    runs = {}
+    for value in (True, False):
+        agg = Aggregator(_tiny_cfg(sharded=value), outputs_dir=str(tmp_path / str(value)),
+                         device="cpu")
+        agg.run()
+        assert isinstance(agg.engine, ShardedEngine) is value
+        runs[value] = json.loads(_results_bytes(agg))
+    for home, series in runs[False].items():
+        if home == "Summary":
+            continue
+        assert series == runs[True][home]
+    for key in ("p_grid_aggregate", "solver_iterations", "RP", "p_grid_setpoint"):
+        assert runs[True]["Summary"][key] == runs[False]["Summary"][key]
 
 
 def _verbose_lines(agg, logger_name, caplog, monkeypatch):
