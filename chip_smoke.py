@@ -6,10 +6,17 @@
 Phases, each of which ends the run with a non-zero exit code on failure:
 
 1. device: a CUDA card must be visible; prints its name and power limit;
-2. build: compiles every kernel source in dragg_tpu_torch/csrc/ with nvcc
-   (one nvcc per unit, started together: band.cu in five units,
-   iter.cu), beside phase 3's bucket-shape discovery (engines built, no
-   kernel launched);
+2. build, as the image builds: the kernel-build ``RUN`` line of
+   dragg_tpu_torch/deploy/Dockerfile (``CUDA_VISIBLE_DEVICES= python -m
+   dragg_tpu_torch.kernel_cache``) in a subprocess that sees no card,
+   into a fresh ``$DRAGG_COMPILE_CACHE_DIR`` outside the repo that the
+   script then keeps for every later phase and child: every kernel
+   source in dragg_tpu_torch/csrc/ compiled with nvcc (one nvcc per
+   unit, started together: band.cu in five units, iter.cu) and the
+   native host library with g++ beside them, both in that directory,
+   no card visible and torch not imported;
+   beside phase 3's bucket-shape discovery (engines built, no kernel
+   launched);
 3. kernels: holds each band kernel against its plain PyTorch version on
    the card bit for bit (torch.equal) at every bucket shape of the main
    path (H = 24) and of a 48 h horizon, at the bucket's B, 10,000, a
@@ -296,7 +303,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    prints each level's p50 / p99 and phase split, the saturation rate,
    the warm-up, the band launches a served batch, the soak's recovery
    seconds, and the scale check's seconds a step, home-steps a second,
-   each bucket's ADMM backend and the card's peak memory;
+   each bucket's ADMM backend and the card's peak memory; the tools'
+   ``tpu.compile_cache_dir`` (under their ``--root``) holds links to
+   phase 2's libraries, so their workers load them;
 23. the bench harness and the last tools, each ``python -m
    dragg_tpu_torch[.<tool>]`` in a subprocess (the harness's parent and
    ``bench_rl_fleet``'s never import torch): (a) ``python -m
@@ -326,6 +335,23 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    (both run with ``telemetry.trace`` on for this): every trace one rooted
    tree without orphans; c, d and e at once, started before phase 13 and
    run beside it (contended), joined first;
+24. deploy: ``dragg_tpu_torch/deploy/batch.sh`` run as sbatch would run
+   it, under a stand-in ``srun`` written onto ``PATH`` (one task:
+   ``SLURM_JOB_ID``, ``SLURM_STEP_NODELIST`` this host's name,
+   ``SLURM_NTASKS=1``, ``SLURM_PROCID=0``, ``SLURM_LOCALID=0``; the
+   machine has no SLURM) and a stand-in ``nvcc`` that records each call
+   and runs the toolkit's: ``python -m dragg_tpu_torch run`` on the
+   10,000-home community of the mix, H = 24, 4 hourly steps, the IPM on
+   the split band route, started beside phase 13: it finds its rank
+   through SLURM's variables (``[run] slurm: rank 0 of 1, local id 0``,
+   the coordinator this host on the job id's port), loads phase 2's
+   library (``run.end``'s ``kernel_library`` a ``hit``, nvcc started for
+   ``--version`` alone), launches ``chol_kernel`` and
+   ``refined_solve_kernel`` (``run.end``'s ``kernel_launches``) as often
+   as the in-process run, and its results.json is bit-equal to an
+   in-process ``Aggregator(config, device="cuda").run()`` of the same
+   config; prints the seconds from the launch to the first chunk's start
+   and a step;
 
 then prints the phases line (each phase's seconds), the kernels JSON
 line, the card line and, last, the result line.  Per-shape details go to
@@ -334,9 +360,11 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -4544,6 +4572,15 @@ def tool_cli(outputs_dir: str, name: str, module: str, args: list) -> dict:
     root = os.path.join(d, "run")
     if module in ("serve_load", "serve_soak"):
         args = [*args, "--root", root]
+        # The tools put tpu.compile_cache_dir under their root, as the JAX
+        # tools put their XLA cache: it holds phase 2's libraries, as a
+        # deployment's shared directory would, so no worker compiles.
+        lib_dir = os.path.join(root, "compile_cache")
+        os.makedirs(lib_dir, exist_ok=True)
+        cache_dir = os.environ["DRAGG_COMPILE_CACHE_DIR"]
+        for so in os.listdir(cache_dir):
+            if so.endswith(".so") and not os.path.exists(os.path.join(lib_dir, so)):
+                os.symlink(os.path.join(cache_dir, so), os.path.join(lib_dir, so))
     env = dict(os.environ, DRAGG_FAULT_STATE=d)
     for var in ("DRAGG_FAULT_INJECT", "DRAGG_TELEMETRY_DIR"):
         env.pop(var, None)
@@ -4944,6 +4981,152 @@ def bench_tools_phase(outputs_dir: str, legs: dict, kind: str) -> dict:
     return out
 
 
+# ------------------------ the image's build (phase 2) and deploy (phase 24)
+DEPLOY_DIR = os.path.join("dragg_tpu_torch", "deploy")
+DEPLOY_STEPS = 4          # phase 24: hourly steps of the 10,000-home run
+DEPLOY_TIMEOUT_S = 600
+
+
+def stand_in(bin_dir: str, name: str, body: str) -> None:
+    """An executable ``bin_dir/name`` running the shell ``body``."""
+    os.makedirs(bin_dir, exist_ok=True)
+    path = os.path.join(bin_dir, name)
+    with open(path, "w") as f:
+        f.write("#!/bin/bash\n" + body)
+    os.chmod(path, 0o755)
+
+
+def image_build(cache_dir: str, bin_dir: str) -> dict:
+    """Phase 2: the Dockerfile's kernel-build ``RUN`` line, as written there
+    (``CUDA_VISIBLE_DEVICES=``, no card visible), in a subprocess with
+    ``$DRAGG_COMPILE_CACHE_DIR`` the fresh ``cache_dir`` and ``python``
+    this interpreter: its report, both libraries in ``cache_dir``, the
+    kernel library compiled there, no card visible and torch not even
+    imported."""
+    with open(os.path.join(DEPLOY_DIR, "Dockerfile")) as f:
+        runs = [ln.strip()[len("RUN "):] for ln in f
+                if ln.startswith("RUN CUDA_VISIBLE_DEVICES= ")]
+    check(len(runs) == 1, f"the Dockerfile's kernel-build RUN lines: {runs}")
+    env = dict(os.environ, DRAGG_COMPILE_CACHE_DIR=cache_dir,
+               PATH=bin_dir + os.pathsep + os.environ.get("PATH", ""))
+    proc = subprocess.run(["bash", "-c", runs[0]], env=env, capture_output=True, text=True,
+                          timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the image's build ({runs[0]!r}): exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    rep = json.loads(lines[0])
+    check(rep["directory"] == cache_dir and rep["built"] and rep["cuda_visible_devices"] == ""
+          and not rep["torch_imported"]
+          and os.path.dirname(rep["kernels"]) == cache_dir and os.path.isfile(rep["kernels"])
+          and rep["host"] and os.path.dirname(rep["host"]) == cache_dir,
+          f"the image's build: {rep}")
+    return dict(rep, command=runs[0])
+
+
+SRUN_STAND_IN = """# srun's stand-in: one task of one step on this host (no SLURM here).
+export SLURM_JOB_ID={job} SLURM_STEP_NODELIST={host} SLURM_NTASKS=1 SLURM_PROCID=0 SLURM_LOCALID=0
+exec "$@"
+"""
+NVCC_STAND_IN = """# Records every call, then runs the toolkit's nvcc.
+echo "$*" >> {log}
+exec {nvcc} "$@"
+"""
+
+
+def deploy_run(outputs_dir: str, bin_dir: str) -> dict:
+    """Phase 24's run: ``dragg_tpu_torch/deploy/batch.sh`` under a stand-in
+    ``srun`` (one task; ``$SLURM_STEP_NODELIST`` this host's name, the
+    coordinator port derived from the job id) and a stand-in ``nvcc``
+    that records its calls, on the 10,000-home community of the mix, H =
+    24, DEPLOY_STEPS hourly steps.  Started beside phase 13; returns what
+    :func:`deploy_phase` checks."""
+    import socket
+
+    from dragg_tpu_torch.ops import cuda_lib
+    from dragg_tpu_torch.parallel import world
+
+    d = os.path.join(outputs_dir, "deploy")
+    run_bin = os.path.join(d, "bin")
+    nvcc_log = os.path.join(d, "nvcc.log")
+    host, job = socket.gethostname(), os.getpid()
+    stand_in(run_bin, "srun", SRUN_STAND_IN.format(job=job, host=host))
+    stand_in(run_bin, "nvcc", NVCC_STAND_IN.format(log=nvcc_log, nvcc=cuda_lib._nvcc()))
+    cfg = community_config(N_HOMES, MAIN_HORIZON, end_after(DEPLOY_STEPS), bucketed="auto")
+    path = write_config(os.path.join(d, "config.toml"), cfg)
+    # No launcher's variable but the stand-in srun's reaches the run.
+    launchers = {world.ENV_ADDRESS, world.ENV_NUM, world.ENV_ID, *world.TORCHRUN_VARS,
+                 "MASTER_PORT", "LOCAL_RANK", world.OMPI_URI, *world.OMPI_VARS,
+                 *world.SLURM_VARS, world.ENV_PORT}
+    env = {k: v for k, v in os.environ.items() if k not in launchers}
+    env["PATH"] = os.pathsep.join([run_bin, bin_dir, env.get("PATH", "")])
+    out_path, err_path = os.path.join(d, "stdout.txt"), os.path.join(d, "stderr.txt")
+    t_launch = time.time()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(["bash", os.path.join(DEPLOY_DIR, "batch.sh"), "--config", path,
+                                 "--outputs-dir", os.path.join(d, "out")],
+                                stdout=out, stderr=err, env=env, start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rc = proc.wait(timeout=DEPLOY_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.time() - t_launch
+    with open(err_path, errors="replace") as f:
+        err_text = f.read()
+    check(rc == 0, f"batch.sh under the stand-in srun: exit {rc}\n{err_text[-4000:]}")
+    with open(nvcc_log) as f:
+        nvcc_calls = [ln.strip() for ln in f if ln.strip()]
+    return dict(cfg=cfg, rc=rc, seconds=seconds, t_launch=t_launch, host=host,
+                port=job % 4096 + 61440, stderr=err_text, nvcc_calls=nvcc_calls,
+                outputs=os.path.join(d, "out"))
+
+
+def deploy_phase(outputs_dir: str, join, library: str) -> dict:
+    """Phase 24 (module docstring): the run that :func:`deploy_run` started
+    beside phase 13, checked, and held bit for bit against an in-process
+    ``Aggregator(config, device="cuda").run()`` of the same config."""
+    run = join()
+    world_lines = [ln for ln in run["stderr"].splitlines() if ln.startswith("[run] ")]
+    want = (f"[run] slurm: rank 0 of 1, local id 0, coordinator "
+            f"{run['host']}:{run['port']}")
+    check(world_lines == [want], f"the run's world: {world_lines}, wanted {want!r}")
+    check(all(c == "--version" for c in run["nvcc_calls"]),
+          f"the run started nvcc beyond --version: {run['nvcc_calls']}")
+    results = [os.path.join(r, f) for r, _, fs in os.walk(run["outputs"]) for f in fs
+               if f == "results.json"]
+    check(len(results) == 1, f"the run's results.json files: {results}")
+    with open(results[0]) as f:
+        got = json.load(f)
+    evs = events_of(os.path.dirname(os.path.dirname(results[0])))
+    end = [e for e in evs if e["event"] == "run.end"]
+    chunks = [e for e in evs if e["event"] == "chunk.done"]
+    check(len(end) == 1 and end[0]["completed"] and chunks,
+          f"the run's events: run.end {end}, {len(chunks)} chunk.done")
+    launches, lib = end[0].get("kernel_launches") or {}, end[0].get("kernel_library") or {}
+    check(lib.get("cache") == "hit" and lib.get("path") == library,
+          f"the run's kernel library: {lib}, phase 2 built {library}")
+    check(launches.get("banded_cholesky_t", 0) > 0 and launches.get("refined_banded_solve_t", 0) > 0
+          and launches.get("factor_refined_solve_t") == 0 and launches.get(WINDOW) == 0,
+          f"the run did not launch the split route's kernels alone: {launches}")
+    # Ready: launch to the first chunk's start (its end less its seconds).
+    ready_s = chunks[0]["t"] - chunks[0]["device_s"] - run["t_launch"]
+    ref = card_run(os.path.join(outputs_dir, "deploy-ref"), run["cfg"])
+    same_results(got, ref["results"], "batch.sh run vs in-process run")
+    check(launches == ref["launches"], f"batch.sh run launched {launches}, in-process "
+                                       f"{ref['launches']}")
+    out = dict(homes=N_HOMES, steps=DEPLOY_STEPS, cluster="slurm", world=want,
+               library=lib, nvcc_calls=run["nvcc_calls"], launches=launches,
+               seconds=run["seconds"], ready_s=ready_s,
+               s_per_step=got["Summary"]["phase_times"]["device_chunks"] / DEPLOY_STEPS,
+               ref_s_per_step=ref["results"]["Summary"]["phase_times"]["device_chunks"]
+               / DEPLOY_STEPS, bit_equal_to_in_process=True)
+    log("deploy (batch.sh, stand-in srun, 10,000 homes, H = 24, beside phase 13): "
+        + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4966,7 +5149,18 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({card}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    from dragg_tpu_torch.ops.cuda_lib import build_library
+    from dragg_tpu_torch.ops import cuda_lib
+
+    # The kernel library's directory for the whole script, fresh and
+    # outside the repo: phase 2 builds into it as the image does, and
+    # every later phase and child loads from it.
+    cache_dir = tempfile.mkdtemp(prefix="dragg-kernels-")
+    bin_dir = tempfile.mkdtemp(prefix="dragg-chip-bin-")
+    for d in (cache_dir, bin_dir):
+        atexit.register(shutil.rmtree, d, True)
+    os.environ["DRAGG_COMPILE_CACHE_DIR"] = cache_dir
+    # "python" in a shell command (the Dockerfile's, batch.sh's) is this one.
+    stand_in(bin_dir, "python", f'exec {sys.executable} "$@"\n')
 
     # Seconds of each phase, for the next slice's budget (the phases line).
     phases = {}
@@ -4978,9 +5172,10 @@ def main() -> int:
         return out
 
     t_start = time.perf_counter()
-    # The build (its nvcc processes) runs beside the bucket-shape discovery
-    # below, which builds engines and launches no kernel.
-    build = in_thread(timed, "2_build", build_library)
+    # The build (the image's build step, its nvcc processes) runs beside
+    # the bucket-shape discovery below, which builds engines and launches
+    # no kernel.
+    build = in_thread(timed, "2_build", image_build, cache_dir, bin_dir)
 
     from dragg_tpu_torch.aggregator import Aggregator
 
@@ -5008,8 +5203,12 @@ def main() -> int:
         grid_shapes = [(GRID, b["name"], b["m_eq"], b["band_bw"], b["n_real"]) for b in grid]
         log(f"grid-block band shapes: {grid_shapes}")
         phases["3_kernels"] = round(time.perf_counter() - t0, 1)  # the bucket shapes
-        build()
-        log(f"build: {phases['2_build']:.1f} s (beside the shape discovery)")
+        image = build()
+        check(cuda_lib.library_path() == image["kernels"],
+              f"this process looks for {cuda_lib.library_path()}, the build made "
+              f"{image['kernels']}")
+        log(f"build: {phases['2_build']:.1f} s (the image's {image['command']!r}, "
+            f"beside the shape discovery): {json.dumps(image)}")
         kern = timed("3_kernels", kernel_phase, shapes)
         win = timed("3_kernels", window_phase, [(b["name"], b["m_eq"], b["n_var"], b["n_real"])
                                                 for b in buckets[MAIN_HORIZON]])
@@ -5042,6 +5241,7 @@ def main() -> int:
                                              {"linear": {"s_per_step": rl["linear"]["s_per_step"]}})
         tools_bc = serving_tools_background(d)
         bench_ce = bench_tools_background(d)
+        deploy_join = in_thread(deploy_run, d, bin_dir)
         fleet = timed("13_fleet", fleet_phase, d)
         fleet_rl = fleet_rl_join()
         phases["14_fleet_rl"] = round(time.perf_counter() - t14, 1)  # beside phase 13
@@ -5056,6 +5256,7 @@ def main() -> int:
         tools = timed("22_serving_tools", serving_tools_phase, d, tools_bc)
         bench_tools = timed("23_bench_tools", bench_tools_phase, d, bench_ce,
                             torch.cuda.get_device_name(0))
+        deploy = timed("24_deploy", deploy_phase, d, deploy_join, image["kernels"])
 
     launches = {"banded_cholesky_t": stats["launches_split"]["banded_cholesky_t"],
                 "refined_banded_solve_t": stats["launches_split"]["refined_banded_solve_t"],
@@ -5209,7 +5410,7 @@ def main() -> int:
                    "telemetry": tel, "admm": admm, "readers": readers,
                    "supervised": supervised, "sharding": sharding, "serving": serving,
                    "shard": shard, "serving_tools": tools, "bench_tools": bench_tools,
-                   "phases": phases},
+                   "image_build": image, "deploy": deploy, "phases": phases},
                   f, indent=1)
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": entries}))

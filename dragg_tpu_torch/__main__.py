@@ -22,11 +22,13 @@ a deadline, heartbeat-stall detection, and on a card lost mid-run
 (``resilience.degrade_to_cpu``) the same run resumed on the CPU from its
 latest checkpoint; it prints one provenance JSON line.  With
 ``$DRAGG_DISTRIBUTED=1`` ``run`` is one rank of a sharded run
-(:mod:`dragg_tpu_torch.parallel`): it joins a gloo group at
-``tcp://$DRAGG_COORDINATOR_ADDRESS`` of ``$DRAGG_NUM_PROCESSES`` ranks as
-``$DRAGG_PROCESS_ID`` (or torchrun's ``env://`` without the address), and
-runs on its card, ``cuda:$LOCAL_RANK``, unless ``--device`` says
-otherwise.  ``reformat``,
+(:mod:`dragg_tpu_torch.parallel`): it joins the gloo group of the
+ranks ``parallel.world.detect`` finds (``$DRAGG_COORDINATOR_ADDRESS``
+with ``$DRAGG_NUM_PROCESSES`` and ``$DRAGG_PROCESS_ID``, torchrun, Open
+MPI or SLURM, in that order; exit 2 with one line when none is there),
+says on stderr what it found, and runs on the card of its local id
+unless ``--device`` says otherwise.  The deployment files (an image,
+an sbatch script) are in ``dragg_tpu_torch/deploy/``.  ``reformat``,
 ``sweep`` and ``dashboard`` read run trees (:mod:`~dragg_tpu_torch.reformat`,
 :mod:`~dragg_tpu_torch.dashboard`); their figures need matplotlib.
 ``serve`` runs the MPC serving daemon (:mod:`dragg_tpu_torch.serve`):
@@ -275,12 +277,20 @@ def main(argv=None) -> int:
             # One rank of a sharded run: every rank runs this command.
             from dragg_tpu_torch.parallel import world
 
-            missing = world.missing_env()
-            if missing:
-                print(world.missing_env_message(missing), file=sys.stderr)
+            try:
+                found = world.detect()
+            except ValueError as e:
+                print(e, file=sys.stderr)
                 return 2
-            if world.init_from_env().size > 1 and device == "cuda":
-                device = None  # the rank's card, cuda:$LOCAL_RANK
+            if found is None:
+                print(world.NO_CLUSTER, file=sys.stderr)
+                return 2
+            w = world.init_from_env()
+            print(f"[run] {found.name}: rank {w.rank} of {w.size}, local id "
+                  f"{w.local_rank}, coordinator {found.address or 'env://'}",
+                  file=sys.stderr, flush=True)
+            if device == "cuda":
+                device = w.card()  # the rank's card, never another
         from dragg_tpu_torch.aggregator import Aggregator
 
         try:

@@ -1234,9 +1234,22 @@ class Aggregator:
             num_timesteps=self.num_timesteps,
             elapsed_s=round(time.time() - t0, 3),
             completed=self.timestep >= self.num_timesteps,
+            **self._kernel_record(),
         )
         telemetry.write_snapshot()
         telemetry.close_run()
+
+    def _kernel_record(self) -> dict:
+        """On the card, ``run.end``'s record of the kernels: the process's
+        launch counts and the library it loaded (``cuda_lib.loaded()``:
+        its path, ``hit`` or ``miss``).  The JAX package's ``run.end``
+        has neither."""
+        if self.device.type != "cuda":
+            return {}
+        from dragg_tpu_torch.ops import band_kernels, cuda_lib, iter_kernels
+
+        return {"kernel_launches": {**band_kernels.LAUNCHES, **iter_kernels.LAUNCHES},
+                "kernel_library": cuda_lib.loaded()}
 
     def run(self) -> None:
         """Entry point (dragg/aggregator.py:941-970): the enabled cases in

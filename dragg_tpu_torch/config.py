@@ -417,9 +417,12 @@ _DEFAULT: dict[str, Any] = {
         "forecast_noise_cap": 3.0,  # max forecast-noise std (degC): the
                                     # reference's unbounded 1.1^k growth
                                     # breaks the season gate beyond ~16 h
-        "compile_cache": True,    # the JAX package's XLA cache: unused here
-        "compile_cache_dir": "",  # (a serving worker's warm-up loads the
-                                  # kernel library, telemetry/compile_obs)
+        "compile_cache": True,    # reuse built libraries; false builds
+                                  # into a fresh directory of the process's
+        "compile_cache_dir": "",  # where the kernel and host libraries
+                                  # live; "" = $DRAGG_COMPILE_CACHE_DIR,
+                                  # else dragg_tpu_torch/_build
+                                  # (kernel_cache.py)
         "admm_rho": 0.1,
         "admm_sigma": 1e-6,
         "admm_reg": 1e-3,

@@ -416,7 +416,9 @@ SELFTEST_HOMES = 64
 
 
 def cuda_kernel_selftest() -> dict:
-    """Build or load the kernel library (``ops/cuda_lib.lib()``) and hold
+    """Build or load the kernel library (``ops/cuda_lib.lib()``, in the
+    directory that the config the doctor reads and the environment
+    resolve, ``kernel_cache.py``) and hold
     each of the four kernels against its plain version on the card at
     one small bucket shape: the band kernels bit for bit
     (``torch.equal``), the window at ``bench_window.check_window``'s
@@ -429,10 +431,12 @@ def cuda_kernel_selftest() -> dict:
                                               window_fixture)
     from dragg_tpu_torch.ops import band_kernels as bk
     from dragg_tpu_torch.ops import iter_kernels as ik
+    from dragg_tpu_torch import kernel_cache
     from dragg_tpu_torch.ops.cuda_lib import lib, library_path
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
+    kernel_cache.configure(_check_config()[1])
     cached = os.path.isfile(library_path())
     lib()
     m, bw = SELFTEST_BAND
@@ -459,6 +463,7 @@ def cuda_kernel_selftest() -> dict:
         kernels["fused_window"] = False
     return {"ok": all(kernels.values()), "kernels": kernels,
             "library": "hit" if cached else "miss",
+            "directory": kernel_cache.build_dir(),
             "shapes": {"band": [m, bw, SELFTEST_HOMES],
                        "window": [mw, nw, SELFTEST_HOMES]}}
 
@@ -480,7 +485,7 @@ def _check_cuda_kernels(timeout_s: float) -> dict:
         rep = json.loads(line[len("KERNELS "):])
         return {"status": OK if rep["ok"] else FAIL,
                 "kernels": rep["kernels"], "library": rep["library"],
-                "shapes": rep["shapes"]}
+                "directory": rep["directory"], "shapes": rep["shapes"]}
     except subprocess.TimeoutExpired:
         return {"status": FAIL,
                 "error": f"kernel self-test hung >{timeout_s:.0f}s"}

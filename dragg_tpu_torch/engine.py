@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dragg_tpu_torch import rng
+from dragg_tpu_torch import kernel_cache, rng
 from dragg_tpu_torch.device import resolve_device
 from dragg_tpu_torch.homes import TYPE_CODES, pad_batch, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
@@ -1455,7 +1455,10 @@ def make_engine(batch, env, config, start_index: int, device=None, fleet=None,
     validated config dict, on ``device`` (None = the CUDA card).
     ``fleet`` (a ``homes.FleetSpec`` from ``build_fleet_batch``) folds C
     communities into the home axis; ``events`` overrides the event
-    timeline (default: resolved from the config's ``[scenarios]``)."""
+    timeline (default: resolved from the config's ``[scenarios]``).
+    The config's ``tpu.compile_cache*`` place the kernel library
+    (``kernel_cache.configure``) before the engine's first launch."""
+    kernel_cache.configure(config)
     params = engine_params(config, start_index)
     if events is None:
         events = resolve_engine_events(config, env, params, fleet=fleet, data_dir=data_dir)

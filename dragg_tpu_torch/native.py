@@ -1,6 +1,7 @@
 """ctypes bindings for the native host runtime (the counterpart of
 ``dragg_tpu/native.py``): the repo's ``native/statebus.cpp`` and
-``native/collector.cpp``, built with g++ into this package's ``_build/``.
+``native/collector.cpp``, built with g++ into the library directory
+(``kernel_cache.build_dir()``, by default this package's ``_build/``).
 
 Two components, both with transparent pure-Python fallbacks so the host
 runtime works on machines without a C++ toolchain (host code only: no
@@ -14,8 +15,12 @@ device path falls back to anything):
   Redis reads + whole-dict json.dump, dragg/aggregator.py:728-755,831-844).
 
 The shared library is built once on demand with ``g++ -O2 -shared -fPIC``
-into ``dragg_tpu_torch/_build/`` (a plain C ABI + ctypes needs no
-build-time Python dependency at all).  ``StateBus().native`` /
+into the library directory that the kernel library shares
+(``tpu.compile_cache_dir``, else ``$DRAGG_COMPILE_CACHE_DIR``, else
+``dragg_tpu_torch/_build/``), under its lock (a plain C ABI + ctypes
+needs no build-time Python dependency at all).  A directory that cannot
+be written and holds no library raises; a missing toolchain takes the
+fallback.  ``StateBus().native`` /
 ``SeriesCollector(n).native`` say which backend runs (the doctor's
 ``native_runtime`` check reports it as ``native_extension``).
 """
@@ -27,42 +32,50 @@ import os
 import subprocess
 import threading
 
+from dragg_tpu_torch import kernel_cache
+
 _LIB = None
 _LIB_TRIED = False
 _LOCK = threading.Lock()
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(os.path.dirname(_PKG), "native")
-_BUILD_DIR = os.path.join(_PKG, "_build")
+_BUILD_DIR = kernel_cache.DEFAULT_DIR  # the library directory by default
 _SOURCES = ["statebus.cpp", "collector.cpp"]
 
 
 def _build_lib() -> str | None:
-    """Compile the native library if needed; returns its path or None."""
-    cache = _BUILD_DIR
-    lib_path = os.path.join(cache, "libdragghost.so")
+    """Compile the native library if needed; returns its path or None (no
+    toolchain).  Raises when the library directory cannot be written."""
+    lib_path = os.path.join(kernel_cache.build_dir(), "libdragghost.so")
     srcs = [os.path.join(_SRC_DIR, s) for s in _SOURCES]
     if not all(os.path.isfile(s) for s in srcs):
         return None
-    if os.path.isfile(lib_path) and all(
-        os.path.getmtime(lib_path) >= os.path.getmtime(s) for s in srcs
-    ):
+
+    def current() -> bool:
+        return os.path.isfile(lib_path) and all(
+            os.path.getmtime(lib_path) >= os.path.getmtime(s) for s in srcs)
+
+    if current():
         return lib_path
-    os.makedirs(cache, exist_ok=True)
-    # Compile to a per-process temp name and atomically publish, so
-    # concurrent builds never dlopen a half-written library.
-    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o", tmp_path, *srcs]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp_path, lib_path)
-    except (OSError, subprocess.SubprocessError):
-        if os.path.exists(tmp_path):
-            try:
-                os.remove(tmp_path)
-            except OSError:
-                pass
-        return None
+    with kernel_cache.build_lock(lib_path):
+        if current():  # another process built it meanwhile
+            return lib_path
+        # Compile to a per-process temp name and atomically publish, so a
+        # process that loads without the lock never dlopens a half-written
+        # library.
+        tmp_path = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o", tmp_path, *srcs]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp_path, lib_path)
+        except (OSError, subprocess.SubprocessError):
+            if os.path.exists(tmp_path):
+                try:
+                    os.remove(tmp_path)
+                except OSError:
+                    pass
+            return None
     return lib_path
 
 
@@ -72,8 +85,8 @@ def load_library():
     with _LOCK:
         if _LIB_TRIED:
             return _LIB
+        path = _build_lib()  # raises (and stays untried) on an unwritable directory
         _LIB_TRIED = True
-        path = _build_lib()
         if path is None:
             return None
         try:

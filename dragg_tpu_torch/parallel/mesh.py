@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dragg_tpu_torch import kernel_cache
 from dragg_tpu_torch.engine import (
     CommunityState,
     Engine,
@@ -44,10 +45,11 @@ HOMES_AXIS = "homes"
 
 def rank_device(world: World, device=None):
     """The device a rank runs on: ``device`` as given, else its card
-    (``cuda:{local_rank}``; ``"cuda"`` in the world of one)."""
+    (``world.card()``, ``cuda:{local_rank}``; ``"cuda"`` in the world of
+    one)."""
     if device is not None or world.size == 1:
         return device
-    return f"cuda:{world.local_rank}"
+    return world.card()
 
 
 class ShardedEngine(Engine):
@@ -88,7 +90,9 @@ def make_sharded_engine(batch, env, config, start_index: int, world: World | Non
     """Sharded counterpart of :func:`dragg_tpu_torch.engine.make_engine`:
     this rank's engine over ``world`` (default: the process's), on
     ``device`` (default: the rank's card).  ``tpu.mesh_axis`` names the
-    axis in logs; the port has no named axes."""
+    axis in logs; the port has no named axes.  The config places the
+    kernel library, as in ``make_engine``."""
+    kernel_cache.configure(config)
     axis = str(config.get("tpu", {}).get("mesh_axis", HOMES_AXIS))
     params = engine_params(config, start_index)
     if events is None:

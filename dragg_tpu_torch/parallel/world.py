@@ -2,9 +2,16 @@
 
 One process drives one card.  A run over W cards is W processes in one
 ``torch.distributed`` group: ``python -m dragg_tpu_torch run`` with
-``$DRAGG_DISTRIBUTED=1`` (and ``$DRAGG_COORDINATOR_ADDRESS``,
-``$DRAGG_NUM_PROCESSES``, ``$DRAGG_PROCESS_ID``, as the JAX package reads
-them), or under ``torchrun`` (``env://``).  What crosses ranks is small and
+``$DRAGG_DISTRIBUTED=1``.  :func:`detect` finds the ranks, trying in turn
+``$DRAGG_COORDINATOR_ADDRESS`` with ``$DRAGG_NUM_PROCESSES`` and
+``$DRAGG_PROCESS_ID`` (as the JAX package reads them), torchrun's
+``env://``, then Open MPI and SLURM as ``jax.distributed.initialize()``
+finds them (``jax/_src/clusters/ompi_cluster.py``, ``slurm_cluster.py``):
+the same presence tests, coordinator address, port and ids.  torchrun
+comes before them, unlike in JAX (which has no torchrun detector),
+because torchrun inside ``srun`` starts several processes that share
+one ``$SLURM_PROCID``.  Each rank drives the card of its local id.  What
+crosses ranks is small and
 already crosses to the host — a flag a solver check window, a load vector
 a step, a chunk's per-home rows — so the collectives run over gloo on
 host tensors, which also serves two ranks sharing one card (NCCL refuses
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +41,17 @@ import torch
 ENV_ADDRESS = "DRAGG_COORDINATOR_ADDRESS"
 ENV_NUM = "DRAGG_NUM_PROCESSES"
 ENV_ID = "DRAGG_PROCESS_ID"
+# The variables each launcher sets, as each detector tests for them.
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+OMPI_URI = "OMPI_MCA_orte_hnp_uri"
+OMPI_VARS = ("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_LOCAL_RANK")
+SLURM_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS", "SLURM_PROCID",
+              "SLURM_LOCALID")
+# Overrides the coordinator port derived from the job id (JAX's variable).
+ENV_PORT = "JAX_COORDINATOR_PORT"
+NO_CLUSTER = (f"DRAGG_DISTRIBUTED=1 but no cluster was found: set {ENV_ADDRESS}, "
+              f"{ENV_NUM} and {ENV_ID}, or run under torchrun ({', '.join(TORCHRUN_VARS)}), "
+              f"Open MPI ({OMPI_URI}) or SLURM ({', '.join(SLURM_VARS)})")
 # Seconds a collective waits for the other ranks before it raises (and
 # the run ends non-zero).
 TIMEOUT = datetime.timedelta(seconds=600)
@@ -43,13 +62,23 @@ _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 @dataclass(frozen=True)
 class World:
     """``rank`` of ``size`` processes; ``local_rank`` picks the card
-    (``cuda:{local_rank}``).  ``group`` is None in the world of one."""
+    (:meth:`card`).  ``group`` is None in the world of one."""
 
     rank: int = 0
     size: int = 1
     local_rank: int = 0
     group: object = None
     host_group: object = None
+
+    def card(self) -> str:
+        """``cuda:{local_rank}``, the rank's card; raises when the local id
+        is not below the number of visible cards (no other card is
+        taken)."""
+        n = torch.cuda.device_count()
+        if self.local_rank >= n:
+            raise RuntimeError(f"rank {self.rank}: local id {self.local_rank} is not below "
+                               f"the {n} visible CUDA devices")
+        return f"cuda:{self.local_rank}"
 
     @property
     def distributed(self) -> bool:
@@ -174,23 +203,97 @@ def missing_env_message(missing: list[str]) -> str:
             "three are required for explicit multi-process init.")
 
 
+@dataclass(frozen=True)
+class Cluster:
+    """The ranks :func:`detect` found: the launcher (``"dragg"``,
+    ``"torchrun"``, ``"ompi"`` or ``"slurm"``), the coordinator's
+    ``host:port`` as JAX gives it (None under torchrun, whose ``env://``
+    reads ``MASTER_ADDR`` and ``MASTER_PORT``), and the count, id and
+    local id."""
+
+    name: str
+    address: str | None
+    size: int
+    rank: int
+    local_rank: int
+
+    @property
+    def init_method(self) -> str:
+        if self.address is None:
+            return "env://"
+        host, _, port = self.address.rpartition(":")
+        bare_v6 = ":" in host and not host.startswith("[")
+        return f"tcp://[{host}]:{port}" if bare_v6 else f"tcp://{host}:{port}"
+
+
+def _job_port(job_id: int) -> str:
+    """``$JAX_COORDINATOR_PORT``, else a port in 61440-65535 from the job id."""
+    return os.environ.get(ENV_PORT) or str(job_id % 2**12 + (65535 - 2**12 + 1))
+
+
+def ompi_address() -> str:
+    """The coordinator of an Open MPI job: the launcher's first address in
+    ``$OMPI_MCA_orte_hnp_uri`` (``tcp://`` or ``tcp6://``) and the port
+    of its job id (a multiple of 2^12, divided by it)."""
+    uri = os.environ[OMPI_URI]
+    port = _job_port(int(uri.split(".", maxsplit=1)[0]) // 2**12)
+    match = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if match is None:
+        raise ValueError(f"cannot read the coordinator's address from {OMPI_URI}={uri!r}")
+    return f"{next(g for g in match.groups() if g is not None)}:{port}"
+
+
+def slurm_address() -> str:
+    """The coordinator of a SLURM step: the first host of
+    ``$SLURM_STEP_NODELIST`` (``node001``, ``node001,host2``,
+    ``node[001-015],host2`` or ``node[001,007-015],host2``) and the port
+    of ``$SLURM_JOB_ID``."""
+    port = _job_port(int(os.environ["SLURM_JOB_ID"]))
+    nodes = os.environ["SLURM_STEP_NODELIST"]
+    i = next((k for k, ch in enumerate(nodes) if ch in ",["), len(nodes))
+    if i == len(nodes) or nodes[i] == ",":
+        return f"{nodes[:i]}:{port}"
+    suffix = nodes[i + 1:]
+    j = next((k for k, ch in enumerate(suffix) if ch in ",-"), None)
+    return f"{nodes[:i]}{suffix[:j]}:{port}"
+
+
+def detect() -> Cluster | None:
+    """The ranks the environment describes, tried in the module
+    docstring's order; None when none does.  Raises ``ValueError`` with
+    the JAX package's message when ``$DRAGG_COORDINATOR_ADDRESS`` is set
+    and a variable beside it is missing."""
+    env = os.environ
+    if env.get(ENV_ADDRESS):
+        missing = missing_env()
+        if missing:
+            raise ValueError(missing_env_message(missing))
+        rank = int(env[ENV_ID])
+        return Cluster("dragg", env[ENV_ADDRESS], int(env[ENV_NUM]), rank,
+                       int(env.get("LOCAL_RANK", rank)))
+    if all(v in env for v in TORCHRUN_VARS):
+        rank = int(env["RANK"])
+        return Cluster("torchrun", None, int(env["WORLD_SIZE"]), rank,
+                       int(env.get("LOCAL_RANK", rank)))
+    if OMPI_URI in env:
+        return Cluster("ompi", ompi_address(), *(int(env[v]) for v in OMPI_VARS))
+    if all(v in env for v in SLURM_VARS):
+        return Cluster("slurm", slurm_address(), int(env["SLURM_NTASKS"]),
+                       int(env["SLURM_PROCID"]), int(env["SLURM_LOCALID"]))
+    return None
+
+
 def init_from_env() -> World:
-    """The world a ``$DRAGG_DISTRIBUTED=1`` run joins: with
-    ``$DRAGG_COORDINATOR_ADDRESS`` a gloo group at ``tcp://<address>`` of
-    ``$DRAGG_NUM_PROCESSES`` ranks as ``$DRAGG_PROCESS_ID``; without it,
-    torchrun's ``env://`` (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
-    ``WORLD_SIZE``).  Raises ``ValueError`` with the JAX package's message
-    when the address is set and a variable is missing."""
+    """The world a ``$DRAGG_DISTRIBUTED=1`` run joins: the gloo group of
+    the ranks :func:`detect` finds.  Raises ``ValueError`` with the JAX
+    package's message when the address is set and a variable is missing,
+    and with :data:`NO_CLUSTER` when nothing describes the ranks."""
     if _WORLD is not None:
         return _WORLD
-    missing = missing_env()
-    if missing:
-        raise ValueError(missing_env_message(missing))
-    if os.environ.get(ENV_ADDRESS):
-        return init_world(f"tcp://{os.environ[ENV_ADDRESS]}",
-                          int(os.environ[ENV_NUM]), int(os.environ[ENV_ID]))
-    return init_world("env://", int(os.environ["WORLD_SIZE"]),
-                      int(os.environ["RANK"]))
+    found = detect()
+    if found is None:
+        raise ValueError(NO_CLUSTER)
+    return init_world(found.init_method, found.size, found.rank, found.local_rank)
 
 
 def shutdown() -> None:

@@ -26,11 +26,12 @@ progress payload), a ``fault_hook("compile_<stage>")`` site, a
 ``compile.stage`` event and a ``compile.stage_s`` observation.
 
 ``cache`` says how the kernel library was had: ``hit`` when the
-content-hashed ``_build/libdraggkernels-<tag>.so`` existed before the
-compile stage, ``miss`` when nvcc built it there, ``unknown`` on the CPU,
-where no library is loaded.  The XLA persistent compile cache of the JAX
-package has no counterpart (``tpu.compile_cache_dir`` is accepted and
-not read).
+content-hashed ``libdraggkernels-<tag>.so`` existed in the library
+directory before the compile stage, ``miss`` when nvcc built it there,
+``unknown`` on the CPU, where no library is loaded.  The directory is
+the counterpart of the JAX package's XLA persistent compile cache: the
+engine's config places it (``tpu.compile_cache_dir``, else
+``$DRAGG_COMPILE_CACHE_DIR``; ``kernel_cache.py``).
 
 The returned ``runner`` re-runs ``engine.run_chunk`` at the fixed chunk
 shape.
