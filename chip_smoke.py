@@ -3288,7 +3288,8 @@ for name in ("all_reduce", "all_gather", "gather", "broadcast", "barrier"):
     setattr(World, name, timed(getattr(World, name)))
 from dragg_tpu_torch.aggregator import Aggregator
 from dragg_tpu_torch.bench_band import band_fixture
-from dragg_tpu_torch.ops import admm, band_kernels as bk, ipm, iter_kernels as ik
+from dragg_tpu_torch import telemetry
+from dragg_tpu_torch.ops import admm, band_kernels as bk, iter_kernels as ik
 from dragg_tpu_torch.ops.ipm import band_plan
 jobs, out_path = json.load(open(sys.argv[1])), sys.argv[2]
 records = []
@@ -3297,17 +3298,18 @@ for job in jobs:
     agg = Aggregator(job["config"], outputs_dir=out, device="cuda:0")
     agg.stop_after_chunks = job.get("stop")
     bk.reset_launches(); ik.reset_launches(); admm.reset_factorizations()
-    ipm.reset_phase1_iterations()
     waits[:] = [0.0, 0]
     torch.cuda.synchronize(); t0 = time.perf_counter()
-    agg.run()
+    with telemetry.recording() as recorded:
+        agg.run()
     torch.cuda.synchronize(); seconds = time.perf_counter() - t0
     eng = agg.engine
     rec = dict(job=job["name"], rank=world.rank, size=world.size, device=str(agg.device),
                seconds=seconds, s_per_step=agg._phase_times["device_chunks"] / max(1, agg.timestep),
                launches={**bk.LAUNCHES, **ik.LAUNCHES}, factorizations=dict(admm.FACTORIZATIONS),
                check_windows=admm.CHECK_WINDOWS["windows"],
-               phase1_iterations=ipm.PHASE1_ITERATIONS["iterations"],
+               phase1_iterations=sum(r["attrs"]["iterations"] for r in recorded.records
+                                     if r["name"] == "ipm.phase1_s"),
                solver_iterations=agg._solve_iters, timestep=agg.timestep,
                resumed_from=agg.resumed_from, iter_kernel=eng.iter_kernel,
                engine=type(eng).__name__, n_homes=eng.n_homes, n_local=eng.n_local,

@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dragg_tpu_torch import kernel_cache, rng
+from dragg_tpu_torch import kernel_cache, rng, telemetry
 from dragg_tpu_torch.device import resolve_device
 from dragg_tpu_torch.homes import TYPE_CODES, pad_batch, slice_batch, type_bucket_ranges
 from dragg_tpu_torch.interop import home_batch_from_numpy
@@ -806,7 +806,8 @@ class Engine:
         if not p.integer_first_action:
             return (relaxed, factor, relaxed,
                     torch.zeros((), dtype=F32, device=self.device))
-        sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed, resolve)
+        with telemetry.span("engine.pin_s", event=False):
+            sol, repair_failed = self._integerize_first_action(ctx, qp, relaxed, resolve)
         return sol, factor, relaxed, repair_failed
 
     def _integerize_first_action(self, ctx: _TypeBucket, qp, sol, resolve):
@@ -906,6 +907,7 @@ class Engine:
         repair_failed = torch.sum(torch.where(sol.solved & ~in_band,
                                               ctx.check_mask, 0.0))
         x2 = x.clone()
+        telemetry.inc("engine.host_syncs")  # the column list's copy to the card
         x2[:, [lay.i_cool, lay.i_heat, lay.i_wh]] = torch.stack([pin_c, pin_h, pin_w], dim=1)
         x2[:, lay.i_tin + 1] += dt1
         x2[:, lay.i_tin1] += dt1
@@ -1001,6 +1003,9 @@ class Engine:
         fore = mpc.p_grid[:, 1] / s if H > 1 else zeros
         fore = torch.where(solved, fore, p_load0)
 
+        # The scalar's and the iteration count's copies to the card each
+        # wait for the card.
+        telemetry.inc("engine.host_syncs", 2)
         big = torch.tensor(3.4e38, dtype=F32, device=dev)
 
         def res_max(r):
@@ -1081,25 +1086,31 @@ class Engine:
         return StepOutputs(**merged)
 
     def _step_bucket(self, ctx, state_b, t, rp, refresh, factor_b):
-        """assemble → solve → merge/collect for one bucket."""
-        qp, aux = self._prepare(ctx, state_b, t, rp)
-        sol, factor_b, warm_sol, repair_failed = self._solve(
-            ctx, state_b, qp, factor_b, refresh)
-        new_state, out = self._finish(ctx, state_b, t, sol, aux, warm_sol,
-                                      repair_failed)
+        """assemble → solve → merge/collect for one bucket, each phase a
+        telemetry span carrying the bucket's name."""
+        with telemetry.span("engine.assemble_s", event=False, bucket=ctx.name):
+            qp, aux = self._prepare(ctx, state_b, t, rp)
+        with telemetry.span("engine.solve_s", event=False, bucket=ctx.name):
+            sol, factor_b, warm_sol, repair_failed = self._solve(
+                ctx, state_b, qp, factor_b, refresh)
+        with telemetry.span("engine.finish_s", event=False, bucket=ctx.name):
+            new_state, out = self._finish(ctx, state_b, t, sol, aux, warm_sol,
+                                          repair_failed)
         return new_state, factor_b, out
 
     def _step_local(self, state, t: int, rp, refresh: bool, factor):
         """One community timestep on this rank's homes: (new_state, new
-        solver carry, outputs).  Bucketed engines step each bucket at its
-        own shape (state and carry are per-bucket tuples) and merge the
-        outputs back into community order."""
+        solver carry, outputs), inside the span ``engine.step_s``.
+        Bucketed engines step each bucket at its own shape (state and carry
+        are per-bucket tuples) and merge the outputs back into community
+        order."""
         wrap = (lambda a: a) if self._bucketed else (lambda a: (a,))
-        parts = [self._step_bucket(c, s, t, rp, refresh, f)
-                 for c, s, f in zip(self._buckets, wrap(state), wrap(factor))]
-        new_states, factors, outs = zip(*parts)
-        unwrap = tuple if self._bucketed else (lambda a: a[0])
-        return unwrap(new_states), unwrap(factors), self._merge_outputs(list(outs))
+        with telemetry.span("engine.step_s", event=False, t=t):
+            parts = [self._step_bucket(c, s, t, rp, refresh, f)
+                     for c, s, f in zip(self._buckets, wrap(state), wrap(factor))]
+            new_states, factors, outs = zip(*parts)
+            unwrap = tuple if self._bucketed else (lambda a: a[0])
+            return unwrap(new_states), unwrap(factors), self._merge_outputs(list(outs))
 
     @property
     def n_local(self) -> int:
@@ -1184,6 +1195,7 @@ class Engine:
 
     # ------------------------------------------------------------------ api
     def _rp(self, rp) -> torch.Tensor:
+        telemetry.inc("engine.host_syncs")  # a copy to the card waits for it
         return torch.as_tensor(np.asarray(rp), dtype=F32, device=self.device)
 
     def step(self, state, t: int, rp) -> tuple:

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 from dragg_tpu_torch.ops import band_kernels
 from dragg_tpu_torch.ops import banded as bd
 from dragg_tpu_torch.ops.dual import has_tangent, primal
@@ -72,7 +73,8 @@ RHO_MIN, RHO_MAX = 1e-6, 1e6
 # "auto" goes banded when a bucket's dense Sinv would exceed this.
 BAND_AUTO_BYTES = 1 << 30
 
-# The profiler range around a factorization (read by profile_step), and
+# The telemetry span around a factorization (its profiler range is read
+# by profile_step), and
 # the factorizations since the last reset, by cause: a fresh solve or
 # refresh, or an in-loop rho change.
 FACTOR_RANGE = "admm_factor"
@@ -218,6 +220,8 @@ def ruiz_equilibrate_sparse(pat: SparsePattern, vals, q, iters: int = 10):
     scalings for the equality and box blocks, and the cost scaling (B, 1).
     Degenerate (all-zero) rows keep their scaling."""
     B, dev, dtype = vals.shape[0], vals.device, vals.dtype
+    # Four copies from the host's memory, each waiting for the card.
+    telemetry.inc("engine.host_syncs", 4)
     rows = torch.as_tensor(pat.rows, device=dev)
     cols = torch.as_tensor(pat.cols, device=dev)
     row_src = torch.as_tensor(pat.row_src, device=dev)
@@ -384,7 +388,7 @@ def _admm_impl(
         band backend keeps the band S and its Cholesky factor; dense_inv
         the dense S (for refinement) and the explicit inverse."""
         FACTORIZATIONS[cause] += 1
-        with torch.profiler.record_function(FACTOR_RANGE):
+        with telemetry.span(FACTOR_RANGE, event=False):
             Dinv = diag_inv(rho_b)
             if backend == "band":
                 Sb = scatter_fn(schur_contrib(schur_ix, vals_s, Dinv))

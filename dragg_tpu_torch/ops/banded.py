@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 from dragg_tpu_torch.ops.precision import mxu_einsum
 
 MAX_BAND = 12  # plan_for gives up beyond this bandwidth (the IPM then raises)
@@ -101,7 +102,9 @@ def plan_for(ss, m: int) -> BandPlan | None:
 
 
 def plan_index(plan: BandPlan, device) -> tuple[torch.Tensor, ...]:
-    """(ent_row, ent_off, ent_src) of a plan as index tensors on ``device``."""
+    """(ent_row, ent_off, ent_src) of a plan as index tensors on ``device``
+    (three copies from the host's memory, each waiting for the card)."""
+    telemetry.inc("engine.host_syncs", 3)
     return tuple(torch.as_tensor(a, dtype=torch.long, device=device)
                  for a in (plan.ent_row, plan.ent_off, plan.ent_src))
 

@@ -29,6 +29,7 @@ import math
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 from dragg_tpu_torch.ops import band_kernels
 from dragg_tpu_torch.ops.admm import (
     ADMMSolution,
@@ -45,15 +46,6 @@ from dragg_tpu_torch.ops.qp import (
 )
 
 _BIG = 1e20
-# Phase-1 iterations this process ran since the last reset, before any
-# cross-rank reduction: every rank of a sharded solve runs the same ones
-# (the tail, per rank, is not counted here).
-PHASE1_ITERATIONS = {"iterations": 0}
-
-
-def reset_phase1_iterations() -> None:
-    PHASE1_ITERATIONS["iterations"] = 0
-
 
 def band_plan(pat: SparsePattern):
     """The RCM band plan of a pattern's Schur complement A Θ⁻¹ Aᵀ."""
@@ -100,7 +92,12 @@ def ipm_solve_qp(
 
     schur = _schur_structure_for(pat) or build_schur_structure(pat)
     plan = band_plan(pat)
-    idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
+
+    def idx(a):
+        # A copy from the host's memory to the card waits for the card.
+        telemetry.inc("ipm.host_syncs")
+        return torch.as_tensor(a, dtype=torch.long, device=dev)
+
     rows, cols = idx(pat.rows), idx(pat.cols)
 
     # --- Fixed-variable elimination: a barrier method needs a strict
@@ -288,6 +285,8 @@ def _make_loop(data, shared, eps_abs, eps_rel):
         # f32 conditioning: cap the barrier diagonal and Tikhonov the Schur
         # diagonal; the refined corrector recovers the step's accuracy.
         theta = torch.minimum(torch.maximum(theta, reg_s), theta.new_tensor(1e6))
+        # The scalar's copy to the card waits for the card: a host sync.
+        telemetry.inc("ipm.host_syncs")
         theta = torch.where(frozen[:, None], 1.0, theta)  # benign factor input
         theta_inv = 1.0 / theta
         contrib = schur_contrib(shared["schur"], vals_s, theta_inv)
@@ -369,6 +368,7 @@ def _while(body, limit, state, all_frozen, world=None):
     while i < limit and not all_frozen:
         *state, frozen = body(*state)
         all_frozen = bool(frozen.all())
+        telemetry.inc("ipm.host_syncs")
         if world is not None:
             all_frozen = world.all(all_frozen)
         i += 1
@@ -391,29 +391,34 @@ def _run_phases(B, cap, tail_frac, tail_iters, eps_abs, eps_rel, data, carry0,
     cit = torch.zeros((B,), dtype=torch.int32, device=data[0].device)
     # Early exit once every home is frozen: frozen homes take zero-length
     # steps, so stopping there is output-identical to running the budget.
-    (x, y, s_l, s_u, z_l, z_u, cit), i_done = _while(
-        body, iters, (*carry0, cit), False, world)
-    PHASE1_ITERATIONS["iterations"] += i_done
+    with telemetry.span("ipm.phase1_s", event=False) as sp:
+        (x, y, s_l, s_u, z_l, z_u, cit), i_done = _while(
+            body, iters, (*carry0, cit), False, world)
+        sp.set(iterations=i_done)
 
     if do_tail:
-        k = max(1, min(B - 1, math.ceil(B * float(tail_frac))))
-        _, conv = _make_loop(data, shared, eps_abs, eps_rel)
-        frozen, score = conv(x, y, s_l, s_u, z_l, z_u)
-        # Frozen homes rank below any live straggler; non-finite scores
-        # rank as the worst live straggler.
-        score = torch.nan_to_num(score, nan=math.inf, posinf=math.inf)
-        idx = torch.topk(torch.where(frozen, -1.0, score), k).indices
-        body3, _ = _make_loop(tuple(a[idx] for a in data), shared, eps_abs,
-                              eps_rel)
-        sub = tuple(a[idx] for a in (x, y, s_l, s_u, z_l, z_u, cit))
-        (x2, y2, s_l2, s_u2, z_l2, z_u2, cit2), i2 = _while(
-            body3, tail_iters, sub, bool(frozen.all()))
-        out = []
-        for a, a2 in zip((x, y, s_l, s_u, z_l, z_u, cit),
-                         (x2, y2, s_l2, s_u2, z_l2, z_u2, cit2)):
-            a = a.clone()
-            a[idx] = a2
-            out.append(a)
-        x, y, s_l, s_u, z_l, z_u, cit = out
+        with telemetry.span("ipm.tail_s", event=False) as sp:
+            k = max(1, min(B - 1, math.ceil(B * float(tail_frac))))
+            _, conv = _make_loop(data, shared, eps_abs, eps_rel)
+            frozen, score = conv(x, y, s_l, s_u, z_l, z_u)
+            # Frozen homes rank below any live straggler; non-finite scores
+            # rank as the worst live straggler.
+            score = torch.nan_to_num(score, nan=math.inf, posinf=math.inf)
+            idx = torch.topk(torch.where(frozen, -1.0, score), k).indices
+            body3, _ = _make_loop(tuple(a[idx] for a in data), shared, eps_abs,
+                                  eps_rel)
+            sub = tuple(a[idx] for a in (x, y, s_l, s_u, z_l, z_u, cit))
+            all_frozen = bool(frozen.all())
+            telemetry.inc("ipm.host_syncs")
+            (x2, y2, s_l2, s_u2, z_l2, z_u2, cit2), i2 = _while(
+                body3, tail_iters, sub, all_frozen)
+            out = []
+            for a, a2 in zip((x, y, s_l, s_u, z_l, z_u, cit),
+                             (x2, y2, s_l2, s_u2, z_l2, z_u2, cit2)):
+                a = a.clone()
+                a[idx] = a2
+                out.append(a)
+            x, y, s_l, s_u, z_l, z_u, cit = out
+            sp.set(iterations=i2)
         i_done += i2 if world is None else world.max(i2)
     return x, y, s_l, s_u, z_l, z_u, cit, i_done

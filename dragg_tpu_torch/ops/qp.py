@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 
 TAP_TEMP = 15.0  # assumed cold tap water temp, degC (dragg/mpc_calc.py:181)
 BIG = float("inf")
@@ -338,7 +339,9 @@ def build_schur_structure(pat: SparsePattern) -> SchurStructure:
 
 def schur_index(ss: SchurStructure, device) -> tuple[torch.Tensor, ...]:
     """A SchurStructure's triple lists (e1, e2, kcol, mask) as tensors on
-    ``device`` — built once per solve, read every iteration."""
+    ``device`` — built once per solve, read every iteration.  Each of the
+    four copies from the host's memory waits for the card."""
+    telemetry.inc("engine.host_syncs", 4)
     e1, e2, kcol = (torch.as_tensor(a, dtype=torch.long, device=device)
                     for a in (ss.e1, ss.e2, ss.kcol))
     return e1, e2, kcol, torch.as_tensor(ss.mask, dtype=F32, device=device)
@@ -570,6 +573,9 @@ def assemble_qp_step(
 
     rem = 1.0 - draw_frac  # remainder_frac (dragg/mpc_calc.py:202-204)
     vals = static.vals.clone()
+    # Indexing by a host array copies it to the card, which waits for the
+    # card: once a read or a write, twice an update in place.
+    telemetry.inc("engine.host_syncs")
     vals[:, static.whmix_pos] = -(rem[:, 1:] * static.kwh[:, None])
     oat = _rows2(oat_window)
     ghi = _rows2(ghi_window)
@@ -583,12 +589,14 @@ def assemble_qp_step(
         cop_h = 1.0 + is_hp * (cop_h - 1.0)
         cop_c_full = torch.cat([cop_c, cop_c[:, :1]], dim=1)
         cop_h_full = torch.cat([cop_h, cop_h[:, :1]], dim=1)
+        telemetry.inc("engine.host_syncs", 4)
         vals[:, static.hp_cool_pos] *= cop_c_full
         vals[:, static.hp_heat_pos] *= cop_h_full
     # PV per kW of GHI (shared by the grid rows and the curtailment cost).
     pvc = (batch.pv_area[:, None] * batch.pv_eff[:, None]
            * batch.has_pv[:, None] * ghi[:, :H] / 1000.0)
     if lay.has_grid and lay.has_curt:
+        telemetry.inc("engine.host_syncs")
         vals[:, static.gridpv_pos] = -pvc
 
     b = torch.zeros((n_homes, lay.m_eq), dtype=F32, device=dev)
@@ -665,6 +673,7 @@ def assemble_qp_step(
     # Objective: sum_k w[k] * price[k] * p_grid[k], p_grid affine in the
     # controls (dragg/mpc_calc.py:342,387-432,441-446).
     s = float(wh_cap)
+    telemetry.inc("engine.host_syncs")  # the discount's copy to the card
     w = torch.pow(torch.tensor(float(discount), dtype=F32, device=dev),
                   torch.arange(H, dtype=F32, device=dev))
     wp = w[None, :] * price_total

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 from dragg_tpu_torch.ops import iter_kernels
 from dragg_tpu_torch.ops.dual import primal
 from dragg_tpu_torch.ops.admm import (
@@ -58,7 +59,8 @@ from dragg_tpu_torch.ops.precision import mxu_einsum, validate_precision
 from dragg_tpu_torch.ops.qp import SparsePattern, form_schur_sparse, schur_index
 
 
-# The profiler range around a rho-bank build (read by profile_step).
+# The telemetry span around a rho-bank build (its profiler range is read
+# by profile_step).
 BANK_BUILD_RANGE = "reluqp_bank_build"
 
 
@@ -240,8 +242,8 @@ def _reluqp_impl(
 
     def build_bank():
         """One equilibrated, condition-checked dense inverse per bank rho
-        (a named range, so a profiler trace can attribute its time)."""
-        with torch.profiler.record_function(BANK_BUILD_RANGE):
+        (a named span, so a profiler trace can attribute its time)."""
+        with telemetry.span(BANK_BUILD_RANGE, event=False):
             return torch.stack([
                 equilibrated_spd_inverse(form_S(diag_inv(bank_arr[r].expand(B))))[0]
                 for r in range(R)], dim=1)  # (B, R, m, m)

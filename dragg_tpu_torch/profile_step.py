@@ -28,9 +28,12 @@ Prints one JSON object: seconds per step, device kernel time per step
 profiler range; the ADMM's factorizations, from theirs, with their
 launches and count per step: under the dense inverse each is a band
 Cholesky and a banded forward solve against I, ``banded_explicit_inverse``),
-kernel launches per step, the device's busy share of the
-step, and the top kernels by device time.  The full table goes to
-``chiprun_out/profile_step_<solver>.json``.
+kernel launches per step, the host's waits for the card per step (the
+program's counters), the device's busy share of the step, and the top
+kernels by device time.  The full table goes to
+``chiprun_out/profile_step_<solver>.json``, with each timed step's host
+seconds and iterations by bucket and phase (``telemetry.recording``'s
+``steps()``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from dragg_tpu_torch import telemetry
     from dragg_tpu_torch.aggregator import Aggregator
     from dragg_tpu_torch.config import mixed_community_config
     from dragg_tpu_torch.ops.admm import FACTOR_RANGE
@@ -87,8 +91,9 @@ def main(argv=None) -> int:
     state, _ = eng.run_chunk(eng.init_state(), 0, rps)       # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = eng.run_chunk(state, k, rps)
-    torch.cuda.synchronize()
+    with telemetry.recording() as rec:
+        state, _ = eng.run_chunk(state, k, rps)
+        torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / k                    # profiler off
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, out = eng.run_chunk(state, 2 * k, rps)
@@ -101,9 +106,9 @@ def main(argv=None) -> int:
     n_factors = sum(e.name == FACTOR_RANGE for e in prof.events())
     kernels, bank_us = [], 0.0
     for evt in prof.key_averages():
-        if evt.key in (BANK_BUILD_RANGE, FACTOR_RANGE):
-            # A range's device span, not a kernel: the time of the kernels
-            # launched inside it.
+        if evt.key in telemetry.METRICS:
+            # A telemetry span's range (its device-side annotation spans
+            # the kernels launched inside it), not a kernel.
             if evt.key == BANK_BUILD_RANGE:
                 bank_us = _device_us(evt, ("device_time_total", "cuda_time_total"))
             continue
@@ -128,6 +133,8 @@ def main(argv=None) -> int:
         admm_factor_ms_per_step=sum(x.duration for x in factor_kernels) / k / 1e3,
         other_kernel_ms_per_step=total_ms - band_ms - window_ms,
         kernel_launches_per_step=sum(e[2] for e in kernels),
+        host_syncs_per_step=sum(rec.counters.get(c, 0.0) for c in
+                                ("ipm.host_syncs", "engine.host_syncs")) / k,
         device_busy_share=total_ms / 1e3 / wall,
         solve_rate=float(out.correct_solve.float().mean()),
         iterations_per_step=[int(v) for v in out.admm_iters.cpu()],
@@ -138,7 +145,8 @@ def main(argv=None) -> int:
     tag = (args.solver + (f"_{args.admm_backend}" if args.solver == "admm" else "")
            + (f"_{args.pack}" if args.pack else "") + (f"_c{c}" if c > 1 else ""))
     with open(os.path.join("chiprun_out", f"profile_step_{tag}.json"), "w") as f:
-        json.dump(dict(result, all=[list(e) for e in kernels]), f, indent=1)
+        json.dump(dict(result, all=[list(e) for e in kernels], steps=rec.steps()), f,
+                  indent=1)
     print(json.dumps(result))
     return 0
 

@@ -26,6 +26,7 @@ import struct
 import torch
 
 from dragg_tpu_torch import device as _device  # noqa: F401  (pins TF32 off)
+from dragg_tpu_torch import telemetry
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -61,6 +62,8 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch: ``key`` is ``(..., 2)``,
     ``data`` an int or an int tensor broadcastable to ``key[..., 0]``."""
+    if not (isinstance(data, torch.Tensor) and data.device == key.device):
+        telemetry.inc("engine.host_syncs")  # a copy to the card waits for it
     data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(data), data)

@@ -13,18 +13,22 @@ that launched it).  While a bus is open:
 * :func:`inc` / :func:`set_gauge` / :func:`observe` update the in-memory
   metrics registry; :func:`snapshot` reads it and
   :func:`write_snapshot` persists it as ``<run_dir>/metrics.json``;
-* :func:`span` times a block into a histogram metric (and emits a
-  ``span`` event), wrapping ``torch.profiler.record_function`` when torch
-  is ALREADY imported in this process, so the span shows in a profiler
-  trace — this module never imports torch itself.
+* :func:`span` times a block into a histogram metric (and, unless
+  asked not to, emits a ``span`` event).
+
+Apart from the bus, a :func:`span` wraps its block in a
+``torch.profiler.record_function`` while a torch profiler is recording,
+so it shows in the profiler's trace (this module never imports torch
+itself), and :func:`recording` keeps every span and counter increment of
+a block in memory, on the profiler's clock.
 
 One lock covers every update and every write, so threads share the bus:
 the aggregator's pipeline emits a chunk's records from its worker thread
 while the main thread emits the run's.
 
-Disabled mode (no bus open, env unset) is the default and near-free:
-every entry point is a registry membership check plus one module-global
-load.  Name discipline is enforced even when disabled: an unregistered
+Disabled mode (no bus open, env unset, no profiler, no recording) is
+the default and near-free: every entry point is a registry membership
+check plus a few module-global loads.  Name discipline is enforced even when disabled: an unregistered
 name raises ValueError so a typo cannot hide until a run is
 instrumented.  IO failures, by contrast, are swallowed — telemetry must
 never kill the workload it observes.
@@ -32,6 +36,7 @@ never kill the workload it observes.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -254,6 +259,9 @@ def inc(name: str, value: float = 1.0) -> None:
     if bus is not None:
         with bus.lock:
             bus.counters[name] = bus.counters.get(name, 0.0) + float(value)
+    rec = _rec
+    if rec is not None:
+        rec._add(name, float(value))
 
 
 def set_gauge(name: str, value: float) -> None:
@@ -272,25 +280,148 @@ def observe(name: str, value: float) -> None:
             bus.hists.setdefault(name, _Hist()).observe(float(value))
 
 
+def _profiling() -> bool:
+    """Whether a torch profiler is recording, read from torch's own flag
+    without importing torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+class Recording:
+    """What :func:`recording` collects while it is on.  ``records`` holds
+    one dict a span, in the order they opened: ``name``, ``start_ns`` and
+    ``end_ns`` on the profiler's clock (``time.time_ns``: the Unix-epoch
+    nanoseconds that kineto's events carry, so a span lays against a
+    device trace), ``parent`` (the index of the enclosing span's record in
+    the same thread, or None) and ``attrs`` (the span's own over its
+    parent's).  ``end_ns`` is None while a span is open.  ``counters``
+    holds each counter's increments; ``dropped`` counts spans past
+    :data:`RECORDING_CAP`, whose children hang from the nearest kept
+    span."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+        self.counters: dict[str, float] = {}
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._stacks: dict[int, list] = {}
+
+    def _open(self, name: str, attrs: dict):
+        with self._lock:
+            stack = self._stacks.setdefault(threading.get_ident(), [])
+            parent = stack[-1] if stack else None
+            if len(self.records) >= RECORDING_CAP:
+                self.dropped += 1
+                stack.append(parent)
+                return None
+            if parent is not None:
+                attrs = {**self.records[parent]["attrs"], **attrs}
+            rec = {"name": name, "start_ns": None, "end_ns": None,
+                   "parent": parent, "attrs": attrs}
+            stack.append(len(self.records))
+            self.records.append(rec)
+            return rec
+
+    def _close(self) -> None:
+        with self._lock:
+            self._stacks[threading.get_ident()].pop()
+
+    def _add(self, name: str, value: float) -> None:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0.0) + value
+
+    def steps(self) -> list[dict]:
+        """The records by engine step: one dict an ``engine.step_s`` span,
+        in order, with its ``t``, its ``step_s`` and, under ``buckets``,
+        each bucket's host seconds in every span inside the step, keyed by
+        the name after the dot and summed (``assemble_s``, ``solve_s``,
+        ``pin_s`` inside it, ``finish_s``, the interior point's
+        ``phase1_s`` and ``tail_s``), with the interior point's
+        ``phase1_iterations`` and ``tail_iterations``."""
+        rows, row_of = [], {}
+        for i, r in enumerate(self.records):
+            if r["end_ns"] is None:
+                continue
+            s = (r["end_ns"] - r["start_ns"]) * 1e-9
+            if r["name"] == "engine.step_s":
+                row_of[i] = len(rows)
+                rows.append({"t": r["attrs"].get("t"), "step_s": s, "buckets": {}})
+                continue
+            j = row_of.get(r["parent"])
+            if j is None or "bucket" not in r["attrs"]:
+                continue
+            row_of[i] = j
+            b = rows[j]["buckets"].setdefault(r["attrs"]["bucket"], {})
+            key = r["name"].split(".", 1)[1]
+            b[key] = b.get(key, 0.0) + s
+            if "iterations" in r["attrs"]:
+                k = key[:-2] + "_iterations"
+                b[k] = b.get(k, 0) + r["attrs"]["iterations"]
+        return rows
+
+
+# The most spans one recording keeps, a few hundred bytes each: a step of
+# four buckets opens 25, so a year of hourly steps is 219,000.
+RECORDING_CAP = 1_000_000
+_rec: Recording | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """``with telemetry.recording() as rec: ...`` — keeps every span that
+    closes and every counter increment inside the block, in memory, bus or
+    no bus (:class:`Recording`; at most :data:`RECORDING_CAP` spans).
+    Nothing is written to disk.  One recording at a time, across
+    threads."""
+    global _rec
+    with _state_lock:
+        if _rec is not None:
+            raise RuntimeError("a telemetry recording is already on")
+        rec = _rec = Recording()
+    try:
+        yield rec
+    finally:
+        with _state_lock:
+            _rec = None
+
+
 class span:
-    """``with telemetry.span("engine.chunk_device_s") as sp: ...`` — times
-    the block into the named histogram metric, emits a ``span`` event, and
-    leaves the duration on ``sp.s``.  Wraps the block in a
-    ``torch.profiler.record_function`` when torch is already imported and
-    a bus is open (so spans show up in profiler traces, the counterpart of
-    the JAX bus's ``jax.profiler.TraceAnnotation``) — never imports torch
-    itself."""
+    """``with telemetry.span("engine.chunk_device_s", t=3) as sp: ...`` —
+    times a block, doing each of three things only when it is asked:
 
-    __slots__ = ("name", "s", "_t0", "_ann")
+    * while a bus is open, observes the named histogram metric and, unless
+      ``event=False``, emits a ``span`` event;
+    * while a torch profiler is recording, bus or no bus, wraps the block
+      in a ``torch.profiler.record_function`` of the same name (the
+      counterpart of the JAX bus's ``jax.profiler.TraceAnnotation``);
+    * while a :func:`recording` is on, keeps a record of it with ``attrs``
+      (and those :meth:`set` adds), its children inheriting them.
 
-    def __init__(self, name: str):
+    It leaves the duration on ``sp.s`` when any of them is on, None
+    otherwise.  With none on it reads three globals and takes no lock.  It
+    never imports torch."""
+
+    __slots__ = ("name", "s", "attrs", "_event", "_t0", "_ann", "_node", "_opened")
+
+    def __init__(self, name: str, event: bool = True, **attrs):
         registry.check_metric(name, "histogram")
         self.name = name
         self.s = None
-        self._ann = None
+        self.attrs = attrs
+        self._event = event
+        self._t0 = self._ann = self._node = self._opened = None
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the block (a loop's count)."""
+        self.attrs.update(attrs)
+        if self._node is not None:
+            self._node["attrs"].update(attrs)
 
     def __enter__(self):
-        if "torch" in sys.modules and _current() is not None:
+        rec, prof = _rec, _profiling()
+        if rec is None and not prof and _current() is None:
+            return self
+        if prof:
             try:
                 from torch.profiler import record_function
 
@@ -298,11 +429,22 @@ class span:
                 self._ann.__enter__()
             except Exception:
                 self._ann = None
+        if rec is not None:
+            self._opened = rec
+            self._node = rec._open(self.name, self.attrs)
+            if self._node is not None:
+                self._node["start_ns"] = time.time_ns()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        if self._t0 is None:
+            return False
         self.s = time.perf_counter() - self._t0
+        if self._node is not None:
+            self._node["end_ns"] = time.time_ns()
+        if self._opened is not None:
+            self._opened._close()
         if self._ann is not None:
             try:
                 self._ann.__exit__(*exc)
@@ -312,7 +454,8 @@ class span:
         if bus is not None:
             with bus.lock:
                 bus.hists.setdefault(self.name, _Hist()).observe(self.s)
-            bus.emit("span", {"name": self.name, "s": round(self.s, 6)})
+            if self._event:
+                bus.emit("span", {"name": self.name, "s": round(self.s, 6)})
         return False
 
 

@@ -2,11 +2,13 @@
 one literal table (a copy of ``dragg_tpu/telemetry/registry.py``).
 
 An emit with an unregistered name raises at run time, so the stream stays
-analyzable: every name a run writes is one of these.  The tables are the
+analyzable: every name a run writes is one of these.  The tables hold the
 JAX package's, entry for entry, the names that only its serving, shard
-and resilience layers emit included (``tests/test_torch_telemetry.py``
-holds the two registries equal), so a stream of either package reads the
-same way.  They are pure literals, as the JAX package's are.
+and resilience layers emit included, so a stream of either package reads
+the same way; the port adds the metrics of its own spans and counters
+inside the engine step and the interior point
+(``tests/test_torch_telemetry.py`` holds both).  They are pure literals,
+as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -320,6 +322,52 @@ METRICS: dict[str, tuple[str, str]] = {
                    "duplicate chunk frames acked without re-merge by the "
                    "chunk-ingest server (at-least-once deliveries caught "
                    "by the (epoch, shard, chunk) token)"),
+    # The port's own spans and counters inside the engine step and the
+    # interior point (no counterpart in the JAX package, whose step is
+    # one compiled program).  The spans emit no ``span`` event; a
+    # recording (telemetry.recording) keeps them with their attributes.
+    "engine.step_s": ("histogram",
+                      "host seconds of one engine step (attr t), no sync "
+                      "forced"),
+    "engine.assemble_s": ("histogram",
+                          "host seconds of one bucket's assemble phase "
+                          "(attr bucket)"),
+    "engine.solve_s": ("histogram",
+                       "host seconds of one bucket's solve phase, the "
+                       "integer pin included (attr bucket)"),
+    "engine.pin_s": ("histogram",
+                     "host seconds of one bucket's integer pin of the "
+                     "first action (attr bucket)"),
+    "engine.finish_s": ("histogram",
+                        "host seconds of one bucket's merge/collect phase "
+                        "(attr bucket)"),
+    "ipm.phase1_s": ("histogram",
+                     "host seconds of the interior point's full-batch "
+                     "loop (attr iterations)"),
+    "ipm.tail_s": ("histogram",
+                   "host seconds of the interior point's straggler tail: "
+                   "selection, loop and scatter back (attr iterations)"),
+    "ipm.host_syncs": ("counter",
+                       "waits for the card at sites in ops/ipm.py: two an "
+                       "iteration (the scalar cap's copy to the card, the "
+                       "host read of the frozen verdict), the tail's read "
+                       "of it before its loop, and the solve's eight index "
+                       "copies from the host (a CPU run counts the same "
+                       "sites)"),
+    "engine.host_syncs": ("counter",
+                          "waits for the card at the step path's other "
+                          "sites: copies from the host of index arrays "
+                          "(Ruiz, the Schur and band plans, the assembly's "
+                          "positions, the pin's columns) and scalars (the "
+                          "discount, the finish's, the key's data, the "
+                          "chunk's prices; a CPU run counts the same "
+                          "sites)"),
+    "admm_factor": ("histogram",
+                    "host seconds of one ADMM factorization (the profiler "
+                    "range profile_step reads)"),
+    "reluqp_bank_build": ("histogram",
+                          "host seconds of one ReLU-QP rho-bank build (the "
+                          "profiler range profile_step reads)"),
 }
 
 

@@ -191,3 +191,39 @@ def test_doctor_kernel_selftest(card):
     assert rep["ok"], rep
     assert sorted(rep["kernels"]) == ["banded_cholesky_t", "factor_refined_solve_t",
                                       "fused_window", "refined_banded_solve_t"]
+
+
+def test_host_sync_counters_match_sync_debug_mode(card, tmp_path):
+    """Every wait for the card in an engine chunk (three interior-point
+    steps of a four-bucket community) is counted at its site: torch's sync
+    debug mode warns once a sync, and the program's two counters add up
+    to its warnings."""
+    import collections
+    import warnings
+
+    import numpy as np
+
+    from dragg_tpu_torch import telemetry
+    from dragg_tpu_torch.aggregator import Aggregator
+    from dragg_tpu_torch.config import mixed_community_config
+
+    cfg = mixed_community_config(40, 6, "2015-01-01 12")
+    cfg["home"]["hems"]["solver"] = "ipm"
+    agg = Aggregator(cfg, outputs_dir=str(tmp_path), device="cuda")
+    agg.get_homes()
+    agg._build_engine()
+    eng = agg.engine
+    rps = np.zeros((3, eng.params.horizon), np.float32)
+    state, _ = eng.run_chunk(eng.init_state(), 0, rps)      # compiles and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, telemetry.recording() as rec:
+            warnings.simplefilter("always")
+            eng.run_chunk(state, 8, rps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    counted = rec.counters["ipm.host_syncs"] + rec.counters["engine.host_syncs"]
+    sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in syncs)
+    assert len(syncs) == counted > 0, (rec.counters, sorted(sites.items()))

@@ -8,7 +8,8 @@ record, equal deterministic fields (chunk bounds, bucket names and sizes,
 solve rate, divergence and repair counts; the run's case, size and
 solver), the same metric names in ``metrics.json`` (but
 ``engine.overlap_hidden_s``, observed only when a chunk's host work
-outlasted the next chunk, a matter of timing in both packages), and the
+outlasted the next chunk, a matter of timing in both packages, and the
+port's own spans and counters inside its step), and the
 same ``forensics/`` files with the same keys, the chunk-start states
 within the engines' 1e-4.  Also: telemetry and the observatory change no
 bit of results.json; a resumed run appends to the stream it left; and
@@ -26,6 +27,7 @@ torch.set_num_threads(1)  # one CPU thread per test process: xdist workers share
 from dragg_tpu.aggregator import Aggregator as JaxAggregator
 from dragg_tpu_torch.aggregator import Aggregator
 from dragg_tpu_torch.config import default_config
+from tests.test_torch_telemetry import PORT_METRICS
 
 DETERMINISTIC = ("event", "t0", "t1", "n_steps", "bucket", "n_homes", "solve_rate", "diverged",
                  "repair_failed", "case", "homes", "horizon", "solver", "timestep",
@@ -51,9 +53,14 @@ def records(run_dir: str) -> list[dict]:
 
 
 def _metric_names(run_dir: str) -> dict:
+    """The metric names of a run's ``metrics.json`` that both packages
+    write: without the timed ones, and without the port's own spans and
+    counters inside its step (``PORT_METRICS``, which the JAX package's
+    one compiled step has no counterpart of)."""
     with open(os.path.join(run_dir, "metrics.json")) as f:
         snap = json.load(f)
-    return {k: set(snap[k]) - TIMED_METRICS for k in ("counters", "gauges", "histograms")}
+    return {k: set(snap[k]) - TIMED_METRICS - PORT_METRICS
+            for k in ("counters", "gauges", "histograms")}
 
 
 def assert_streams_match(got: list[dict], want: list[dict]) -> None:
@@ -107,6 +114,11 @@ def test_event_stream_matches_jax(runs):
         assert max(h["r_prim"] for h in w["homes"]) == c["r_prim_max"]
         assert all(0 <= h["home"] < 6 for h in w["homes"])
     assert _metric_names(ta.run_dir) == _metric_names(ja.run_dir)
+    with open(os.path.join(ta.run_dir, "metrics.json")) as f:
+        hists = json.load(f)["histograms"]
+    # The port's step spans: one engine.step_s a step, a phase a bucket.
+    assert hists["engine.step_s"]["count"] == 3
+    assert hists["engine.solve_s"]["count"] == 3 * len(buckets)
 
 
 def test_forensics_match_jax(runs):

@@ -44,9 +44,9 @@ from dragg_tpu.ops import admm as ja  # noqa: E402
 from dragg_tpu.parallel import make_mesh  # noqa: E402
 from dragg_tpu.parallel import make_sharded_engine as jax_sharded_engine  # noqa: E402
 from dragg_tpu_torch import engine as te  # noqa: E402
+from dragg_tpu_torch import telemetry as ttel  # noqa: E402
 from dragg_tpu_torch.config import default_config  # noqa: E402
 from dragg_tpu_torch.ops import admm as ta  # noqa: E402
-from dragg_tpu_torch.ops import ipm as ti  # noqa: E402
 from dragg_tpu_torch.parallel import ONE, ShardedEngine, make_sharded_engine, shard_state  # noqa: E402
 from dragg_tpu_torch.parallel.world import World  # noqa: E402
 from tests.test_torch_engine import _compare  # noqa: E402
@@ -297,11 +297,16 @@ def _assert_obs_as_jax(out_j, out_t):
         assert getattr(out_t, f).shape == np.asarray(getattr(out_j, f)).shape, f
 
 
+def _phase1_iterations(rec) -> int:
+    """Full-batch iterations over a recording: before any cross-rank
+    reduction, so every rank of a sharded solve counts the same ones."""
+    return sum(r["attrs"]["iterations"] for r in rec.records if r["name"] == "ipm.phase1_s")
+
+
 def test_two_ranks_ipm_match_jax():
     cfg = _config("false")
-    ti.reset_phase1_iterations()
-    out_j, out_t, (o0, o1) = _two_rank_run(cfg, 4)
-    sharded_phase1 = ti.PHASE1_ITERATIONS["iterations"]
+    with ttel.recording() as sharded:
+        out_j, out_t, (o0, o1) = _two_rank_run(cfg, 4)
     assert o0.p_grid.shape == (4, 9)        # each rank's block, a 9-home tail batch
     _compare(out_j, out_t)
     _assert_ranks_agree(o0, o1)
@@ -310,9 +315,9 @@ def test_two_ranks_ipm_match_jax():
     # Each rank ran the phase-1 iterations of one rank over the whole batch.
     batch, env, start = _inputs(cfg)
     eu = te.make_engine(batch, env, cfg, start, device="cpu")
-    ti.reset_phase1_iterations()
-    eu.run_chunk(eu.init_state(), 0, np.zeros((4, H), np.float32))
-    assert sharded_phase1 == 2 * ti.PHASE1_ITERATIONS["iterations"] > 0
+    with ttel.recording() as single:
+        eu.run_chunk(eu.init_state(), 0, np.zeros((4, H), np.float32))
+    assert _phase1_iterations(sharded) == 2 * _phase1_iterations(single) > 0
 
 
 def test_two_ranks_reluqp_match_jax():

@@ -1,7 +1,8 @@
 """The port's telemetry package (dragg_tpu_torch/telemetry) against the JAX
 package's (dragg_tpu/telemetry), both loaded in one process.
 
-The registries are equal name for name and kind for kind; unregistered
+The port's registries hold the JAX package's name for name and kind for
+kind, and add only the port's own spans and counters; unregistered
 names raise in both; a span lands in the metrics snapshot and the stream;
 no bus writes nothing; ``$DRAGG_TELEMETRY_DIR`` is joined lazily; the same
 emits give records with the same keys from both buses, with the trace
@@ -54,13 +55,29 @@ def test_default_telemetry_config_equals_jax():
     assert default_config()["tpu"]["profile_dir"] == jax_default_config()["tpu"]["profile_dir"]
 
 
+# What the port adds to the JAX package's registry and exports: the spans
+# and counters inside its engine step and interior point, the profiler
+# ranges of its ADMM factorization and ReLU-QP bank build, and the
+# in-memory recording.
+PORT_METRICS = {
+    "engine.step_s", "engine.assemble_s", "engine.solve_s", "engine.pin_s",
+    "engine.finish_s", "ipm.phase1_s", "ipm.tail_s", "ipm.host_syncs",
+    "engine.host_syncs", "admm_factor", "reluqp_bank_build",
+}
+PORT_EXPORTS = {"recording"}
+
+
 def test_registries_equal():
+    """Every entry of the JAX package's registries is in the port's,
+    unchanged, and the port adds only the names written above."""
     assert ttel.EVENTS == jtel.EVENTS
-    assert ttel.METRICS == jtel.METRICS
+    assert {k: ttel.METRICS[k] for k in jtel.METRICS} == jtel.METRICS
+    assert set(ttel.METRICS) - set(jtel.METRICS) == PORT_METRICS
     assert (ttel.ENV_DIR, ttel.ENV_FLUSH, ttel.EVENTS_FILE, ttel.METRICS_FILE) == (
         jtel.ENV_DIR, jtel.ENV_FLUSH, jtel.EVENTS_FILE, jtel.METRICS_FILE)
     assert ttel.trace.ENV_CTX == jtel.trace.ENV_CTX
-    assert sorted(ttel.__all__) == sorted(jtel.__all__)
+    assert set(jtel.__all__) <= set(ttel.__all__)
+    assert set(ttel.__all__) - set(jtel.__all__) == PORT_EXPORTS
 
 
 @pytest.mark.parametrize("tel", BOTH)
@@ -241,7 +258,9 @@ def test_event_follower_and_selftest(tmp_path):
     assert [r["event"] for r in fol.poll(contains=b'"run.end"')] == ["run.end"]
     assert fol.poll() == []
     ttel.close_run()
-    assert ttel.selftest() == jtel.selftest()
+    # The port's registry holds the JAX package's and its own additions.
+    assert ttel.selftest() == {**jtel.selftest(),
+                               "metrics": len(jtel.METRICS) + len(PORT_METRICS)}
 
 
 def test_bus_shared_by_threads(tmp_path):
